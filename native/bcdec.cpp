@@ -8,7 +8,7 @@
 // bc6h.py — tests assert bit-equality between the two.
 //
 // Built on demand by tpurast/assets/native.py:
-//   g++ -O3 -shared -fPIC -o libtpurast_bcdec.so bcdec.cpp
+//   g++ -O3 -shared -fPIC -o libbcdec.so bcdec.cpp
 // BC7 partition/anchor tables are injected at runtime via bc7_init()
 // (they are derived empirically on the Python side; no duplication).
 

@@ -1,20 +1,14 @@
-"""End-to-end pipeline tests: demo scene -> framebuffer (CPU, interpret)."""
+"""End-to-end pipeline tests: seeded demo scene -> framebuffer (CPU, interpret)."""
 
 import numpy as np
 import pytest
 
 from tpurast.camera import Camera, MoveDirection
 from tpurast.config import RendererConfig
-from tpurast.device.scene import load_demo_scene
 from tpurast.engine import Engine
 from tpurast.renderer import Renderer
 
 MAGENTA = np.array([255, 0, 255], dtype=np.uint8)
-
-
-@pytest.fixture(scope="module")
-def demo_scene(data_dir):
-    return load_demo_scene(str(data_dir))
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +21,7 @@ def demo_camera():
 
 
 def test_demo_scene_composition(demo_scene):
-    # arena + dragon + crate (porsche stripped from the mount).
+    # arena + dragon-class mesh + crate (the demo without the Porsche).
     assert demo_scene.n_faces == 19354
     assert demo_scene.texture_uris[0] == "builtin://fallback-texture"
     assert any("crate" in u for u in demo_scene.texture_uris)
@@ -69,9 +63,10 @@ def test_depth_ordering_crate_in_front_of_floor(renderer):
     # wall pixels.
     res = renderer.render(demo_camera())
     depth = np.asarray(res["depth"])
-    # crate center ~ screen center-bottom; wall ~ upper mid rows.
-    crate_d = depth[70, 80]
-    wall_d = depth[52, 10]
+    # crate front ~ screen center-bottom; far wall ~ just below the
+    # horizon, left of center.
+    crate_d = depth[85, 80]
+    wall_d = depth[56, 60]
     assert crate_d > wall_d > 0
 
 
@@ -174,13 +169,13 @@ def test_specular_highlight_present(demo_scene):
     assert out[..., :3].max() > 60  # highlights clearly above base albedo
 
 
-def test_hdr_scene_renders(data_dir):
+def test_hdr_scene_renders():
     # BASELINE config #3: BC6H HDR base color + generated BC4u monochrome
-    # map, full mip chain trilinear.
-    from tpurast.device.scene import load_hdr_scene
+    # map, full mip chain trilinear (seeded: generated BC6H crates).
+    from tpurast.device.seeded import load_seeded_hdr_scene
 
-    scene = load_hdr_scene(str(data_dir))
-    assert "textures/hdr_bc6u.ktx2" in scene.texture_uris
+    scene = load_seeded_hdr_scene(0)
+    assert "mem://hdr_bc6u.ktx2" in scene.texture_uris
     assert "mem://bc4_stripes.ktx2" in scene.texture_uris
     r = Renderer(scene, RendererConfig(width=128, height=96, segment_headroom=64),
                  output="linear_f32")
@@ -194,10 +189,12 @@ def test_hdr_scene_renders(data_dir):
     assert covered.mean() > 0.4  # floor + two crates
 
 
-def test_instanced_dragons_scene(data_dir):
-    from tpurast.device.scene import load_instanced_dragons
+def test_instanced_dragons_scene():
+    from conftest import TEST_TEXTURE_SIZE
 
-    scene = load_instanced_dragons(str(data_dir), 4)
+    from tpurast.device.seeded import load_seeded_dragons
+
+    scene = load_seeded_dragons(0, 4, dragon_texture_size=TEST_TEXTURE_SIZE)
     assert scene.n_faces == 4 * 19332
     r = Renderer(scene, RendererConfig(width=128, height=96, segment_headroom=1024))
     cam = Camera.from_target([0.0, 0.5, -1.0], [0.0, 0.95, 0.0])
@@ -207,13 +204,10 @@ def test_instanced_dragons_scene(data_dir):
 
 
 def test_forward_shading_matches_deferred(demo_scene):
-    # The resolve-kernel forward path (kernels/resolve.py) must reproduce
-    # the deferred fat-gather path exactly: same interpolation formulas,
-    # bit-exact MXU attribute selection, same lighting op order. Pinned
-    # to the gather sampler on both sides — the windowed sampler is a
-    # different filtering engine with its own LSB-budget parity test
-    # (test_sampler.py).
-    cfgs = dict(width=160, height=96, segment_headroom=192, sampler="gather")
+    # The forward path (kernels/resolve.py G-buffer + shade_gbuffer) must
+    # reproduce the deferred fat-gather path exactly: same interpolation
+    # formulas, same attribute values, same lighting op order.
+    cfgs = dict(width=160, height=96, segment_headroom=192)
     cam = demo_camera()
     fwd = Renderer(demo_scene, RendererConfig(shading="forward", **cfgs))
     dfr = Renderer(demo_scene, RendererConfig(shading="deferred", **cfgs))
@@ -224,15 +218,9 @@ def test_forward_shading_matches_deferred(demo_scene):
 
 
 def test_forward_matches_deferred_anisotropic(demo_scene):
-    # sampler="gather" pins the row-atlas engine on the forward path:
-    # the exact-equality invariant is between the two SHADING
-    # architectures sharing one sampling formula. The windowed engine
-    # is a different aniso filter (per-tile dynamic probe count) and is
-    # budget-tested separately (tests/test_sampler.py).
-    cfgs = dict(
-        width=128, height=96, segment_headroom=192, max_anisotropy=4,
-        sampler="gather",
-    )
+    # The exact-equality invariant is between the two SHADING
+    # architectures sharing one sampling formula.
+    cfgs = dict(width=128, height=96, segment_headroom=192, max_anisotropy=4)
     cam = Camera.from_target([0.0, 1.3, -1.5], [0.0, 1.6, 1.0])  # grazing floor
     fwd = Renderer(demo_scene, RendererConfig(shading="forward", **cfgs))
     dfr = Renderer(demo_scene, RendererConfig(shading="deferred", **cfgs))

@@ -15,6 +15,16 @@ from tpurast.kernels import geometry, raster
 W = H = 64
 TILE_H, TILE_W = 8, 128  # one tile column; H/TILE_H = 8 tiles
 
+# Every test runs against both rasterizer formulations: the Pallas kernel
+# (interpreted on the CPU) and the plain jax.numpy reference.
+_IMPL = {"name": "kernel"}
+
+
+@pytest.fixture(autouse=True, params=sorted(raster.RASTERIZERS))
+def impl(request):
+    _IMPL["name"] = request.param
+    return request.param
+
 
 def rasterize(clip_verts, faces=None, width=W, height=H, capacity=1024, binner=None):
     """Helper: clip-space triangles -> (depth, fid) images."""
@@ -42,6 +52,8 @@ def rasterize(clip_verts, faces=None, width=W, height=H, capacity=1024, binner=N
         tiles_x=tiles_x,
         tiles_y=tiles_y,
         clear_depth=0.0,
+        segment_headroom=64,
+        impl=_IMPL["name"],
     )
     return (
         np.asarray(depth)[:height, :width],

@@ -7,18 +7,12 @@ from jax.sharding import Mesh
 
 from tpurast.camera import Camera
 from tpurast.config import RendererConfig
-from tpurast.device.scene import load_demo_scene
 from tpurast.parallel import make_sharded_renderer
 from tpurast.renderer import Renderer
 
 # Long CPU-interpret renders: excluded from the fast subset
 # (`pytest -m 'not slow'`, see README testing section).
 pytestmark = pytest.mark.slow
-
-
-@pytest.fixture(scope="module")
-def demo_scene(data_dir):
-    return load_demo_scene(str(data_dir))
 
 
 def test_eight_device_mesh_available():
@@ -42,7 +36,7 @@ def test_sharded_matches_single_device(demo_scene):
     assert color.shape == ref.shape
 
     # Slabs render in GLOBAL pixel coordinates through the SAME
-    # render_frame as the single-chip path, so the sharded frame is
+    # render_frame as the single-card path, so the sharded frame is
     # bit-identical — no reassociation tolerance.
     np.testing.assert_array_equal(color, ref)
 

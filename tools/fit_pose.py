@@ -9,7 +9,7 @@ against the screenshot's non-background mask (IoU). The camera is a
 traced input, so hundreds of candidate poses share one compiled frame.
 
 Usage:
-  python tools/fit_pose.py --ref /root/reference/docs/media/2024-08-31_hello_dragon.jpg \
+  python tools/fit_pose.py --ref <reference>/docs/media/2024-08-31_hello_dragon.jpg \
       --scene dragon --iters 600 --out /tmp/pose_dragon.json
 """
 
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import sys
 
 import numpy as np
@@ -45,7 +46,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ref", required=True)
     ap.add_argument("--scene", default="dragon", choices=["dragon", "demo"])
-    ap.add_argument("--data-dir", default="/root/reference/data")
+    ap.add_argument("--data-dir", required=True, help="reference data directory")
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=180)
     ap.add_argument("--iters", type=int, default=600)
@@ -66,7 +67,7 @@ def main() -> int:
     )
     args = ap.parse_args()
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
     from tpurast import math3d
     from tpurast.assets.gltf import load_glb
     from tpurast.camera import Camera

@@ -35,7 +35,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(REPO / "docs" / "parity"))
-    ap.add_argument("--data-dir", default="/root/reference/data")
+    ap.add_argument("--data-dir", required=True, help="reference data directory")
     args = ap.parse_args()
 
     sys.path.insert(0, str(REPO))

@@ -5,7 +5,7 @@ Thin CLI over tpurast.profiling.stage_sweep (see that module): times
 jit-compiled prefixes of render_frame via its `stage=` parameter, so
 the deltas between successive prefixes are the per-stage device costs
 on the exact production path (corner transform, pair-sort binning,
-segment raster, resolve, windowed plan + sample).
+segment raster, resolve, shading).
 
 Usage: python tools/profile_stages.py [--scene demo] [--width 1920] ...
 """
@@ -26,11 +26,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--scene", default="demo")
+    ap.add_argument("--scene", default="seeded_demo")
+    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=24)
-    ap.add_argument("--data-dir", default="/root/reference/data")
+    ap.add_argument("--data-dir", default=None)
     ap.add_argument("--max-anisotropy", type=int, default=None)
-    ap.add_argument("--sampler", default=None)
     args = ap.parse_args()
 
     from tpurast.camera import Camera
@@ -39,12 +39,10 @@ def main() -> int:
     from tpurast.profiling import stage_sweep
     from tpurast.renderer import Renderer
 
-    scene = load_named_scene(args.scene, args.data_dir)
+    scene = load_named_scene(args.scene, args.data_dir, seed=args.seed)
     overrides = {}
     if args.max_anisotropy is not None:
         overrides["max_anisotropy"] = args.max_anisotropy
-    if args.sampler:
-        overrides["sampler"] = args.sampler
     cfg = RendererConfig(width=args.width, height=args.height, **overrides)
     r = Renderer(scene, cfg)
 

@@ -4,7 +4,7 @@ Replaces the GPU's fixed-function BC sampling that the reference relies on
 (wgpu `TextureCompressionBC` feature, src/Renderer.zig:216-221; format
 mapping src/wgpu.zig:136-159): BC7 (8 modes), BC4 unsigned, and BC6H
 (half-float HDR) blocks are decoded on host into texel mip pyramids that
-live in HBM for the Pallas sampling kernels.
+live on the device for the texture gathers.
 
 All decoders are vectorized over blocks. A C++ fast path with identical
 output lives in native/ (see tpurast.assets.native); tests fuzz both against

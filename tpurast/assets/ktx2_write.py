@@ -1,11 +1,13 @@
-"""Minimal KTX2 writer + BC4 encoder (asset generation).
+"""Minimal KTX2 writer + BC4, BC6H and BC7 encoders (asset generation).
 
 The reference ships no BC4u asset despite having the code path
 (src/wgpu.zig:137, BASELINE config #3 requires "BC4u monochrome maps"),
-so we generate our own: a simple max/min-endpoint BC4 encoder plus a
-KTX2 container writer with Zstandard supercompression — the mirror image
-of tpurast/assets/ktx2.py. The DFD block is written as a stub (size-only);
-tpurast's own parser skips it, which is all these generated fixtures need.
+and the seeded scenes (device/seeded.py) generate their BC7-sRGB
+and HDR textures, so we encode our own: a max/min-endpoint BC4 encoder,
+a BC7 mode-6 and a BC6H mode-0x03 encoder, and a KTX2 container writer (optionally Zstandard
+supercompressed) — the mirror image of tpurast/assets/ktx2.py. The DFD
+block is written as a stub (size-only); tpurast's own parser skips it,
+which is all these generated assets need.
 """
 
 from __future__ import annotations
@@ -59,14 +61,171 @@ def encode_bc4(image: np.ndarray) -> bytes:
     return out.tobytes()
 
 
+# BC7 4-bit index interpolation weights (the format's fixed table).
+_BC7_WEIGHTS4 = np.array(
+    [0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64], dtype=np.int32
+)
+
+
+def _quantize_mode6_endpoint(v: np.ndarray):
+    """(N, 4) 8-bit endpoints -> (7-bit values (N, 4), shared p-bit (N,)).
+
+    Mode 6 stores each endpoint as 7 bits per channel plus one p-bit
+    shared by its four channels: value = 2q + p. Picks the p-bit with the
+    smaller squared error."""
+    best_q = best_p = best_err = None
+    for p in (0, 1):
+        q = np.clip((v - p + 1) // 2, 0, 127)
+        err = (((2 * q + p) - v) ** 2).sum(axis=1)
+        if best_err is None:
+            best_q, best_p, best_err = q, np.zeros(len(v), np.int32), err
+        else:
+            take = err < best_err
+            best_q = np.where(take[:, None], q, best_q)
+            best_p = np.where(take, 1, best_p)
+            best_err = np.minimum(err, best_err)
+    return best_q, best_p
+
+
+def encode_bc7_mode6(image: np.ndarray, chunk: int = 16384) -> bytes:
+    """Encode a (H, W, 4) uint8 RGBA image to BC7 mode-6 blocks.
+
+    Per block: endpoints are the per-channel min and max (quantized to
+    7 bits + p-bit), indices the nearest of the 16 interpolated palette
+    entries; the anchor index's high bit is cleared by swapping the
+    endpoints. Not rate-optimal. Edge blocks replicate the border.
+    """
+    img = np.asarray(image, dtype=np.uint8)
+    h, w = img.shape[:2]
+    bh, bw = -(-h // 4), -(-w // 4)
+    padded = np.pad(img, ((0, bh * 4 - h), (0, bw * 4 - w), (0, 0)), mode="edge")
+    blocks = (
+        padded.reshape(bh, 4, bw, 4, 4).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 4)
+    )
+    out = np.empty((len(blocks), 16), dtype=np.uint8)
+    wts = _BC7_WEIGHTS4[None, :, None]
+    for c0 in range(0, len(blocks), chunk):
+        px = blocks[c0 : c0 + chunk].astype(np.int32)  # (n, 16, 4)
+        n = len(px)
+        q0, p0 = _quantize_mode6_endpoint(px.min(axis=1))
+        q1, p1 = _quantize_mode6_endpoint(px.max(axis=1))
+        e0 = (2 * q0 + p0[:, None])[:, None, :]
+        e1 = (2 * q1 + p1[:, None])[:, None, :]
+        pal = (e0 * (64 - wts) + e1 * wts + 32) >> 6  # (n, 16 entries, 4)
+        dist = np.zeros((n, 16, 16), dtype=np.int32)
+        for c in range(4):
+            d = px[:, :, None, c] - pal[:, None, :, c]
+            dist += d * d
+        idx = np.argmin(dist, axis=2).astype(np.int32)  # (n, 16 pixels)
+        # Anchor pixel 0 stores 3 bits: its index must be < 8. Swapping
+        # the endpoints mirrors the (symmetric) weight table: i -> 15-i.
+        swap = idx[:, 0] >= 8
+        q0, q1 = np.where(swap[:, None], q1, q0), np.where(swap[:, None], q0, q1)
+        p0, p1 = np.where(swap, p1, p0), np.where(swap, p0, p1)
+        idx = np.where(swap[:, None], 15 - idx, idx)
+
+        bits = np.zeros((n, 128), dtype=np.uint8)
+        off = 0
+
+        def put(v, nbits):
+            nonlocal off
+            for k in range(nbits):
+                bits[:, off + k] = (v >> k) & 1
+            off += nbits
+
+        put(np.full(n, 1 << 6, np.int32), 7)  # mode 6
+        for c in range(4):  # R0 R1 G0 G1 B0 B1 A0 A1
+            put(q0[:, c], 7)
+            put(q1[:, c], 7)
+        put(p0, 1)
+        put(p1, 1)
+        put(idx[:, 0], 3)
+        for i in range(1, 16):
+            put(idx[:, i], 4)
+        out[c0 : c0 + n] = np.packbits(bits, axis=1, bitorder="little")
+    return out.tobytes()
+
+
+def encode_bc6h_mode3(image: np.ndarray, chunk: int = 16384) -> bytes:
+    """Encode a (H, W, 3) float image (values in [0, 65504]) to BC6H-UF16
+    blocks in mode 0x03: one region, 10-bit endpoints stored directly,
+    4-bit indices.
+
+    Works in the decoder's 16-bit unquantized domain u (half bits =
+    (u * 31) >> 6; a 10-bit endpoint q unquantizes to 64 q + 32): the
+    endpoints are the per-channel min and max of u, indices the nearest
+    palette entry. Not rate-optimal. Edge blocks replicate the border.
+    """
+    img = np.clip(np.asarray(image, np.float32), 0.0, 65504.0)
+    h, w = img.shape[:2]
+    bh, bw = -(-h // 4), -(-w // 4)
+    padded = np.pad(img, ((0, bh * 4 - h), (0, bw * 4 - w), (0, 0)), mode="edge")
+    half = padded.astype(np.float16).view(np.uint16).astype(np.int64)
+    u_all = (half * 64 + 30) // 31  # smallest u with (u * 31) >> 6 == half
+    blocks = u_all.reshape(bh, 4, bw, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    out = np.empty((len(blocks), 16), dtype=np.uint8)
+    wts = _BC7_WEIGHTS4[None, :, None].astype(np.int64)
+    for c0 in range(0, len(blocks), chunk):
+        u = blocks[c0 : c0 + chunk]
+        n = len(u)
+        q0 = np.clip((u.min(axis=1) - 32 + 32) // 64, 0, 1023)
+        q1 = np.clip((u.max(axis=1) - 32 + 32) // 64, 0, 1023)
+
+        def unq(q):
+            return np.where(q == 0, 0, np.where(q == 1023, 0xFFFF, q * 64 + 32))
+
+        pal = (unq(q0)[:, None, :] * (64 - wts) + unq(q1)[:, None, :] * wts + 32) >> 6
+        dist = ((u[:, :, None, :] - pal[:, None, :, :]) ** 2).sum(-1)  # (n, 16, 16)
+        idx = np.argmin(dist, axis=2)
+        swap = idx[:, 0] >= 8
+        q0, q1 = np.where(swap[:, None], q1, q0), np.where(swap[:, None], q0, q1)
+        idx = np.where(swap[:, None], 15 - idx, idx)
+
+        bits = np.zeros((n, 128), dtype=np.uint8)
+        off = 0
+
+        def put(v, nbits):
+            nonlocal off
+            for k in range(nbits):
+                bits[:, off + k] = (v >> k) & 1
+            off += nbits
+
+        put(np.full(n, 0x03), 5)
+        for q in (q0, q1):  # rw gw bw, then rx gx bx
+            for c in range(3):
+                put(q[:, c], 10)
+        put(idx[:, 0], 3)
+        for i in range(1, 16):
+            put(idx[:, i], 4)
+        out[c0 : c0 + n] = np.packbits(bits, axis=1, bitorder="little")
+    return out.tobytes()
+
+
+def make_bc6h_ktx2(image: np.ndarray, full_chain: bool = True) -> bytes:
+    """float (H, W, 3) HDR image -> BC6H-UF16 KTX2 blob (mode 0x03 blocks,
+    box-filtered mip chain or the base level only, no supercompression)."""
+    from tpurast.assets.ktx2 import VK_FORMAT_BC6H_UFLOAT_BLOCK
+
+    mips = [np.asarray(image, np.float32)]
+    while full_chain and (mips[-1].shape[0] > 1 or mips[-1].shape[1] > 1):
+        m = mips[-1]
+        h, w = max(1, m.shape[0] // 2), max(1, m.shape[1] // 2)
+        mips.append(m[: h * 2, : w * 2].reshape(h, 2, w, 2, 3).mean(axis=(1, 3)))
+    payloads = [encode_bc6h_mode3(m) for m in mips]
+    return write_ktx2(
+        payloads, VK_FORMAT_BC6H_UFLOAT_BLOCK, image.shape[1], image.shape[0],
+        supercompress=False,
+    )
+
+
 def mip_chain_u8(img: np.ndarray) -> list[np.ndarray]:
-    """Box-filtered full mip chain for a (H, W) uint8 image."""
+    """Box-filtered full mip chain for a (H, W) or (H, W, C) uint8 image."""
     mips = [img]
     m = img.astype(np.float32)
     while m.shape[0] > 1 or m.shape[1] > 1:
         h = max(1, m.shape[0] // 2)
         w = max(1, m.shape[1] // 2)
-        m = m[: h * 2, : w * 2].reshape(h, 2, w, 2).mean(axis=(1, 3))
+        m = m[: h * 2, : w * 2].reshape(h, 2, w, 2, *m.shape[2:]).mean(axis=(1, 3))
         mips.append(np.round(m).astype(np.uint8))
     return mips
 
@@ -78,7 +237,8 @@ def write_ktx2(
     height: int,
     supercompress: bool = True,
 ) -> bytes:
-    """Assemble a KTX2 blob (2D, single layer/face, zstd-supercompressed)."""
+    """Assemble a KTX2 blob (2D, single layer/face); supercompress=True
+    stores each level Zstandard-compressed, False stores it raw."""
     n = len(level_payloads)
     scheme = 2 if supercompress else 0
     if supercompress:
@@ -115,10 +275,24 @@ def write_ktx2(
     return header + index + level_index + dfd + body
 
 
-def make_bc4_ktx2(image: np.ndarray) -> bytes:
+def make_bc4_ktx2(image: np.ndarray, supercompress: bool = True) -> bytes:
     """uint8 (H, W) image -> BC4u KTX2 blob with a full mip chain."""
     from tpurast.assets.ktx2 import VK_FORMAT_BC4_UNORM_BLOCK
 
     mips = mip_chain_u8(np.asarray(image, dtype=np.uint8))
     payloads = [encode_bc4(m) for m in mips]
-    return write_ktx2(payloads, VK_FORMAT_BC4_UNORM_BLOCK, image.shape[1], image.shape[0])
+    return write_ktx2(
+        payloads, VK_FORMAT_BC4_UNORM_BLOCK, image.shape[1], image.shape[0],
+        supercompress=supercompress,
+    )
+
+
+def make_bc7_ktx2(image: np.ndarray, srgb: bool = True) -> bytes:
+    """uint8 (H, W, 4) RGBA image -> BC7 KTX2 blob (mode-6 blocks, full
+    box-filtered mip chain, no supercompression)."""
+    from tpurast.assets.ktx2 import VK_FORMAT_BC7_SRGB_BLOCK, VK_FORMAT_BC7_UNORM_BLOCK
+
+    mips = mip_chain_u8(np.asarray(image, dtype=np.uint8))
+    payloads = [encode_bc7_mode6(m) for m in mips]
+    fmt = VK_FORMAT_BC7_SRGB_BLOCK if srgb else VK_FORMAT_BC7_UNORM_BLOCK
+    return write_ktx2(payloads, fmt, image.shape[1], image.shape[0], supercompress=False)

@@ -21,7 +21,7 @@ import numpy as np
 log = logging.getLogger("tpurast.native")
 
 _SRC = pathlib.Path(__file__).resolve().parent.parent.parent / "native" / "bcdec.cpp"
-_LIB = _SRC.parent / "libtpurast_bcdec.so"
+_LIB = _SRC.parent / "libbcdec.so"
 _lib = None
 _tried = False
 

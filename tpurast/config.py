@@ -46,15 +46,15 @@ class RendererConfig:
     mouse_sensitivity: float = 0.002
     pitch_limit: float = 0.5 * math.pi - 0.01
 
-    # --- TPU pipeline tunables (no reference analog; the GPU rasterizer's
+    # --- Pipeline tunables (no reference analog; the GPU rasterizer's
     # fixed-function tiling made these implicit). ---
-    # Framebuffer tile size: one Pallas program rasterizes one tile.
-    # tile_w must be a multiple of 128 (tiles are written directly as
-    # (C, tile_h, tile_w) framebuffer rectangles, lane dim = tile_w) and
-    # tile_h a multiple of 8 (row-group granularity). 32x128 keeps the
-    # same 4096 px/tile as round-1's 64x64 with full lane occupancy.
+    # Framebuffer tile size: one raster program owns one tile and keeps
+    # its depth/face-id block in registers, so both sides are powers of
+    # two (Triton block shapes). 32x32 gives 2040 tiles at 1080p — about
+    # 15 per SM of a 132-SM card — while keeping the dense per-tile work
+    # of large triangles small.
     tile_h: int = 32
-    tile_w: int = 128
+    tile_w: int = 32
     # Binned-pair buffer capacity (static shape): total (tile, face)
     # pairs per frame for the scan binning path. None = auto (4x the
     # padded face count — generous; typical scenes emit < 2 pairs/face).
@@ -62,49 +62,38 @@ class RendererConfig:
     bin_capacity: int | None = None
     # Extra raster work segments beyond one-per-tile (covers tiles whose
     # bins exceed 128 triangles). Each segment is a (tile, 128-triangle
-    # chunk) grid step; see kernels/raster.py.
+    # chunk) run of setup rows; see kernels/raster.py.
     segment_headroom: int = 8192
 
-    # Binning algorithm: "auto" picks per target size — the chunked
-    # rank-by-cumsum scan is O(tiles x faces) but sort-free (wins for
-    # ordinary scenes); "pairs" emits (tile, face) pairs and 2-key-sorts
-    # them (O(pairs log pairs), wins for 4K instanced scenes where
-    # tiles x faces explodes). See kernels/geometry.py.
+    # Binning algorithm: "pairs" emits (tile, face) pairs and 2-key-sorts
+    # them (O(pairs log pairs)); "scan" is the chunked rank-by-cumsum
+    # scan, O(tiles x faces) but sort-free. "auto" picks pairs. See
+    # kernels/geometry.py.
     binning: str = "auto"
 
     # Atlas texel dtype. "auto" (default): float16 normally — exact for
     # BC6H sources, <1 u8 LSB for BC7 — switching to "srgb8" (u8 rows,
     # sRGB-encoded RGB + linear alpha: EXACTLY the BC source precision,
     # 4x smaller) when the f16 atlas would exceed ~2 GB and content is
-    # LDR, because v5e gather throughput degrades sharply with table
-    # footprint. "float32" is bit-exact to the f32 sampling reference;
+    # LDR. "float32" is bit-exact to the f32 sampling reference;
     # "float16"/"bfloat16"/"srgb8" select explicitly.
     texture_dtype: str = "auto"
 
     # Texture sampling anisotropy: ratio-clamped probes along the
     # major-axis gradient, implemented in both shading paths
-    # (kernels/shade.aniso_footprint) and the windowed sampler
-    # (kernels/sampler.py, per-tile dynamic probe counts). Default 16
-    # matches the reference sampler, which always requests
-    # maxAnisotropy 16 (src/Renderer.zig:515).
+    # (kernels/shade.aniso_footprint). Default 16 matches the reference
+    # sampler, which always requests maxAnisotropy 16
+    # (src/Renderer.zig:515).
     max_anisotropy: int = 16
     # Framebuffer blend state (src/Renderer.zig:447-458): "alpha" is the
     # reference's srcAlpha/oneMinusSrcAlpha+add color blend with zero/one
     # alpha blend; "opaque" bypasses the blend equation.
     blend: str = "alpha"
 
-    # Shading path: "forward" interpolates attributes per pixel inside the
-    # Pallas resolve kernel (kernels/resolve.py; fastest); "deferred" is
-    # the per-pixel fat-gather path (same output, kept for verification).
+    # Shading path: "forward" gathers per-pixel attributes into a
+    # G-buffer (kernels/resolve.py) before texturing; "deferred" is the
+    # per-pixel fat-gather path (same output, kept for verification).
     shading: str = "forward"
-
-    # Texture sampling engine (forward shading only): "window" samples
-    # through per-tile VMEM texel windows + MXU one-hot selection
-    # (kernels/sampler.py — footprint-independent, the porsche-class
-    # fix); "gather" is the per-pixel atlas row gather. "auto" picks
-    # window when the scene has texture pages, with gather as the
-    # per-tile fallback for unwindowable tiles either way.
-    sampler: str = "auto"
 
     @property
     def vfov(self) -> float:

@@ -1,10 +1,10 @@
 """Scene geometry residency: flat, padded, device-ready draw buffers.
 
 The reference keeps per-primitive vertex/index/uniform buffers and walks
-them in a CPU loop of bind+draw calls (src/Renderer.zig:1034-1072). The
-TPU-native design concatenates every primitive of every model into one
-set of arrays so a frame is ONE batched vertex transform + raster, with a
-per-face primitive id carrying the material/transform binding.
+them in a CPU loop of bind+draw calls (src/Renderer.zig:1034-1072). Here
+every primitive of every model is concatenated into one set of arrays so
+a frame is ONE batched vertex transform + raster, with a per-face
+primitive id carrying the material/transform binding.
 
 Instancing (BASELINE config #4) is primitive replication at build time:
 the reference always draws instanceCount=1 (src/Renderer.zig:1069), and
@@ -22,7 +22,6 @@ import numpy as np
 
 from tpurast.assets.gltf import GltfModel, PrimitiveDraw, load_glb
 from tpurast.assets.ktx2 import load_ktx2
-from tpurast.device import pages as pages_mod
 from tpurast.device import textures as tex_mod
 
 log = logging.getLogger("tpurast.device")
@@ -58,26 +57,14 @@ class DeviceScene:
     prim_tex: np.ndarray  # (P,) i32 texture id (0 = fallback)
     atlas: tex_mod.TextureAtlas
     texture_uris: list[str]
-    # 2D mip rects for the windowed sampling kernel (device/pages.py);
-    # None disables the windowed path for this scene.
-    pages: "object | None" = None
     # Build-time face-corner tables (world space). The model->world half
     # of the vertex stage plus ALL vertex->face gathers run once here:
     # per frame the geometry stage is pure arithmetic over (Fp, 3, ...)
-    # corner rows (kernels/geometry.transform_corners) — XLA:TPU dynamic
-    # row gathers cost ~7-76 ns each, so gathering 5 rows per face per
-    # frame dominated geometry on 100k+-face scenes.
+    # corner rows (kernels/geometry.transform_corners).
     corner_world: np.ndarray | None = None  # (Fp, 3, 3) f32
     corner_normal: np.ndarray | None = None  # (Fp, 3, 3) f32
     corner_uv: np.ndarray | None = None  # (Fp, 3, 2) f32
     face_tex: np.ndarray | None = None  # (Fp,) i32 = prim_tex[face_prim]
-    # Retired fields kept for pickle compatibility with cached scenes:
-    # UV chart ids (device/charts.py) fed an earlier windowed-sampler
-    # plan; the page-coordinate covering subsumed them, so they are no
-    # longer computed, uploaded, or read (host tooling that wants charts
-    # calls charts.face_charts directly, e.g. tools/residual_analysis.py).
-    face_chart: np.ndarray | None = None  # (Fp,) i32
-    n_charts: int = 1
 
     @property
     def triangle_count(self) -> int:
@@ -88,7 +75,7 @@ class DeviceScene:
 
         # Memoized per dtype: atlas conversion/upload is the expensive
         # part (minutes for multi-GB srgb8 encodes) and every Renderer
-        # ctor calls device() — the bench parity gate alone builds three.
+        # ctor calls device().
         cache = self.__dict__.setdefault("_device_cache", {})
         if texture_dtype in cache:
             return cache[texture_dtype]
@@ -113,15 +100,7 @@ class DeviceScene:
                 else self.prim_tex[self.face_prim]
             ),
         }
-        if self.pages is not None:
-            out["atlas"].update(self.pages.device(self.page_dtype()))
         return out
-
-    def page_dtype(self) -> str:
-        """bf16 pages: 2^-9 relative texel error, under half a u8 LSB
-        through the shading chain (and the MXU selection runs bf16
-        regardless — f32 pages would round identically in the matmul)."""
-        return "bfloat16"
 
     def corner_tables(self):
         """World-space face-corner tables, computed once (host).
@@ -239,7 +218,6 @@ def build_scene(
         prim_tex=prim_tex_arr,
         atlas=tex_mod.build_atlas(pyramids),
         texture_uris=texture_uris,
-        pages=pages_mod.build_pages(pyramids),
         face_tex=prim_tex_arr[face_prim_padded],
     )
     scene.corner_tables()
@@ -253,8 +231,7 @@ def replicate_model(model: GltfModel, transforms: list[np.ndarray]) -> GltfModel
     BASELINE config #4 (dragon x64) extends this. Instances share the
     source arrays (no vertex copy on host); the flat scene build emits a
     primitive record per instance, so the batched vertex transform treats
-    instances like any other primitive — the TPU-native equivalent of
-    per-instance transforms.
+    instances like any other primitive.
     """
     from tpurast import math3d
 
@@ -273,15 +250,10 @@ def replicate_model(model: GltfModel, transforms: list[np.ndarray]) -> GltfModel
     return GltfModel(draws=draws, image_uris=model.image_uris)
 
 
-def load_instanced_dragons(data_dir: str, count: int = 64, spacing: float = 0.35) -> DeviceScene:
-    """BASELINE config #4 scene: dragon x N in a grid (default 8x8)."""
+def grid_transforms(count: int, spacing: float) -> list[np.ndarray]:
+    """Instance translations on a square x/z grid (BASELINE config #4)."""
     from tpurast import math3d
 
-    up = math3d.WORLD_SPACE.up.vector()
-    dragon = load_glb(
-        os.path.join(data_dir, "meshes/stanford_dragon.glb"),
-        post_transform=math3d.translation(up * -1.0),
-    )
     side = int(np.ceil(np.sqrt(count)))
     transforms = []
     for i in range(count):
@@ -291,10 +263,23 @@ def load_instanced_dragons(data_dir: str, count: int = 64, spacing: float = 0.35
             dtype=np.float32,
         )
         transforms.append(math3d.translation(offs))
-    return build_scene([replicate_model(dragon, transforms)], data_dir=data_dir)
+    return transforms
 
 
-def _quad_draw(
+def load_instanced_dragons(data_dir: str, count: int = 64, spacing: float = 0.35) -> DeviceScene:
+    """BASELINE config #4 scene: dragon x N in a grid (default 8x8)."""
+    from tpurast import math3d
+
+    up = math3d.WORLD_SPACE.up.vector()
+    dragon = load_glb(
+        os.path.join(data_dir, "meshes/stanford_dragon.glb"),
+        post_transform=math3d.translation(up * -1.0),
+    )
+    model = replicate_model(dragon, grid_transforms(count, spacing))
+    return build_scene([model], data_dir=data_dir)
+
+
+def quad_draw(
     center, size_x, size_z, y, uv_scale, image_uri, normal_up=True
 ) -> PrimitiveDraw:
     """Procedural textured floor/ceiling quad (world-space verts)."""
@@ -367,7 +352,7 @@ def load_hdr_scene(data_dir: str) -> DeviceScene:
     stripes = (((x // 8) % 2) * 220 + 20).astype(np.uint8)
     bc4_blob = make_bc4_ktx2(stripes)
     floor = GltfModel(
-        draws=[_quad_draw((0.0, 0.0), 8.0, 8.0, 1.8, 8.0, "mem://bc4_stripes.ktx2")],
+        draws=[quad_draw((0.0, 0.0), 8.0, 8.0, 1.8, 8.0, "mem://bc4_stripes.ktx2")],
         image_uris=["mem://bc4_stripes.ktx2"],
     )
     return build_scene(
@@ -427,8 +412,8 @@ def load_porsche_class_scene(data_dir: str, max_textures: int = 11) -> DeviceSce
 def load_demo_scene(data_dir: str, include_porsche: bool = True) -> DeviceScene:
     """The reference's 4-model demo scene (src/Engine.zig:110-141).
 
-    porche.glb is stripped from the reference mount
-    (.MISSING_LARGE_BLOBS); when absent it is skipped with a log line.
+    A mesh missing from the data dir (porche.glb is often absent) is
+    skipped with a log line; a data dir with none of them raises.
     """
     from tpurast import math3d
 
@@ -462,4 +447,6 @@ def load_demo_scene(data_dir: str, include_porsche: bool = True) -> DeviceScene:
             log.warning("%s missing from data dir (stripped blob?) — skipped", rel)
             continue
         models.append(load_glb(path, post_transform=post))
+    if not models:
+        raise FileNotFoundError(f"no demo meshes under {data_dir}")
     return build_scene(models, data_dir=data_dir)

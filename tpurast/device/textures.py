@@ -1,4 +1,4 @@
-"""Texture mip atlas: HBM layout + host-side build.
+"""Texture mip atlas: device layout + host-side build.
 
 All scene textures (decoded from KTX2/BC on host, see tpurast.assets) are
 packed into one flat (N, 4) float32 array of linear-color texels. Small
@@ -39,9 +39,7 @@ class TextureAtlas:
     parent bilinear footprint for ANY sample point that maps to quad
     (x, y) lands inside that window (offset 0 or 1 on each axis, derived
     per pixel in kernels/shade.py). One gather per TRILINEAR sample
-    instead of eight point fetches: XLA:TPU gather cost is per row and
-    dominated by address generation, so row width is nearly free while
-    row count is the wall (~7 ns/row on v5e).
+    instead of eight point fetches.
     """
 
     texels: np.ndarray  # (N, 52) f32 linear RGBA trilerp rows
@@ -53,25 +51,20 @@ class TextureAtlas:
         return float(self.texels.max()) if self.texels.size else 0.0
 
     def device(self, dtype: str = "float16"):
-        """Upload; dtype="float16" (default) HALVES gather time on v5e
-        (sub-4-byte rows move ~2-3x faster through the gather unit,
-        measured) and is exact for BC6H sources (they are half-float) and
+        """Upload; dtype="float16" (default) halves the bytes each gathered
+        row moves and is exact for BC6H sources (they are half-float) and
         well below 1 u8 LSB for BC7/BC4 sources (2^-11 relative).
         "float32" preserves bit-exactness against the f32 reference path.
 
         dtype="srgb8" stores rows as sRGB-encoded u8 (alpha linear u8) —
         EXACTLY the precision of the BC7/BC4 source data (which is u8
-        sRGB before decode), 4x smaller than f16. v5e's gather slows
-        dramatically with table FOOTPRINT (measured 15 ns/row at 74 MB
-        -> 76 ns/row at 900 MB: DRAM locality), so multi-GB atlases
-        (porsche-class: 11x 2048^2 full-chain) MUST shrink; this is the
-        analog of the reference keeping BC-compressed textures resident
+        sRGB before decode), 4x smaller than f16: the analog of the
+        reference keeping BC-compressed textures resident
         (src/wgpu.zig:130-194). The sampler (kernels/shade._trilerp)
         applies the exact sRGB EOTF after the gather, before filtering —
         the same decode-then-filter order as a GPU sampler. Requires LDR
         content (values in [0, 1]; BC6H scenes keep float16).
         """
-        import jax
         import jax.numpy as jnp
         import ml_dtypes
 
@@ -106,30 +99,7 @@ class TextureAtlas:
                 dtype, dtype
             )
             host = host.astype(np_dtype)
-        # Pin the texel table to ROW-MAJOR device layout. Left to auto
-        # layout assignment, XLA:TPU picks {0,1} (column-major) for this
-        # parameter and re-transposes the whole atlas EVERY FRAME to feed
-        # the row gather; whether that transposed copy lands in on-chip
-        # scoped memory is a memory-space-assignment coin flip (measured
-        # 3.9 ms vs 30.6 ms for the same 1080p gather). Row-major makes
-        # the parameter itself the gather source and a cross-program-
-        # prefetch candidate (pinned on-chip across frames, like weights).
         texels = jnp.asarray(host)
-        # Single-device only: device_put with an explicit Format COMMITS
-        # the array, and a committed single-device input is rejected by
-        # shard_map over a multi-device mesh (the sharded path re-uploads
-        # per its own replication instead).
-        if jax.device_count() == 1:
-            try:
-                from jax.experimental.layout import Format, Layout
-
-                dev = jax.devices()[0]
-                fmt = Format(
-                    Layout((0, 1)), jax.sharding.SingleDeviceSharding(dev)
-                )
-                texels = jax.device_put(texels, fmt)
-            except Exception:  # pragma: no cover - layout API unavailable
-                pass
         return {
             "texels": texels,
             "offsets": jnp.asarray(self.offsets),
@@ -257,11 +227,8 @@ def build_atlas(textures: list[list[np.ndarray]]) -> TextureAtlas:
     HOT/COLD packing: mips >= 2 of every texture are allocated FIRST,
     mip 0/1 after. The two largest mips are ~94% of the bytes but a
     minority of samples at screen resolutions (minified content samples
-    mid mips), and v5e gather throughput is bound by the FOOTPRINT the
-    accesses spread over — concentrating the frequently-sampled mips in
-    a compact prefix keeps their DRAM locality independent of how many
-    multi-hundred-MB base mips sit behind them. Offsets are absolute, so
-    the sampler is unaffected.
+    mid mips), so the frequently-sampled mips share a compact prefix of
+    the table. Offsets are absolute, so the sampler is unaffected.
     """
     n_tex = len(textures)
     offsets = np.zeros((n_tex, MAX_MIPS), dtype=np.int32)

@@ -18,7 +18,7 @@ from typing import Callable
 
 import numpy as np
 
-from tpurast import math3d
+from tpurast import compile_cache, math3d
 from tpurast.camera import Camera, MoveDirection
 from tpurast.config import RendererConfig
 from tpurast.device.scene import DeviceScene, load_demo_scene
@@ -42,6 +42,7 @@ class Engine:
         config: RendererConfig | None = None,
         overlay: bool = True,
     ):
+        compile_cache.enable()
         self.config = config or RendererConfig()
         if scene is None:
             if data_dir is None:
@@ -63,10 +64,8 @@ class Engine:
         # late so the read never stalls the async pipeline. Counts
         # dropped (tile, face) pairs + dropped raster segments.
         self._pending_overflow = None
-        self._pending_window_miss = None
         self.overflow_frames = 0
         self.dropped_total = 0
-        self.window_miss_total = 0
         self.frame_index = 0
 
     # -- one tick: update + render + present ------------------------------
@@ -83,7 +82,7 @@ class Engine:
         # Max-timestep clamp: the first frames pay XLA compilation (tens of
         # seconds); without a clamp a scripted flythrough teleports. The
         # reference needs no clamp (no compile stalls) — this is a
-        # TPU-runtime-specific guard, not a behavior change at 60 Hz.
+        # compile-stall guard, not a behavior change at 60 Hz.
         dt = min(dt, self.MAX_TIMESTEP)
 
         # Update (src/Engine.zig:205-225): move then mouse look.
@@ -96,30 +95,8 @@ class Engine:
         image = self.presenter.present(frame["color"])
         # Check the PREVIOUS frame's overflow counter (completed by now —
         # fetching it does not block this frame's dispatch).
-        if self._pending_overflow is not None:
-            dropped = int(np.asarray(self._pending_overflow))
-            if dropped:
-                self.overflow_frames += 1
-                self.dropped_total += dropped
-                log.warning(
-                    "frame %d: %d binned pairs/segments dropped — raise "
-                    "bin_capacity/segment_headroom (RendererConfig)",
-                    self.frame_index - 1,
-                    dropped,
-                )
-        if self._pending_window_miss is not None:
-            missed = int(np.asarray(self._pending_window_miss))
-            if missed:
-                self.window_miss_total += missed
-                log.warning(
-                    "frame %d: %d pixels fell off the windowed sampler "
-                    "onto per-pixel gathers (unwindowable UV layout) — "
-                    "the frame is correct but silently slower",
-                    self.frame_index - 1,
-                    missed,
-                )
+        self._check_overflow()
         self._pending_overflow = frame["bin_overflow"]
-        self._pending_window_miss = frame.get("window_miss_px")
         if self.vsync:
             budget = 1.0 / 60.0
             elapsed = time.perf_counter() - now
@@ -132,6 +109,22 @@ class Engine:
         if image is not None and self.overlay_enabled:
             image = draw_frametime_overlay(image, self.stats.last_ms)
         return image
+
+    def _check_overflow(self) -> None:
+        """Fetch the pending frame's dropped-pair counter and account it."""
+        if self._pending_overflow is None:
+            return
+        dropped = int(np.asarray(self._pending_overflow))
+        self._pending_overflow = None
+        if dropped:
+            self.overflow_frames += 1
+            self.dropped_total += dropped
+            log.warning(
+                "frame %d: %d binned pairs/segments dropped — raise "
+                "bin_capacity/segment_headroom (RendererConfig)",
+                self.frame_index - 1,
+                dropped,
+            )
 
     def run(
         self,
@@ -154,6 +147,7 @@ class Engine:
                 if on_frame:
                     on_frame(i, image)
         tail = self.presenter.flush()
+        self._check_overflow()
         if tail is not None:
             tail_img = np.asarray(tail)
             if self.overlay_enabled:

@@ -1,13 +1,15 @@
-"""The wgpu-native replacement: TPU compute kernels (XLA + Pallas).
+"""The wgpu-native replacement: GPU compute stages (XLA + one Pallas kernel).
 
 Pipeline stages (one jit-compiled frame function, see tpurast.renderer):
 
-  geometry.py — vertex transform (MXU matmuls), clipless 2D-homogeneous
-                triangle setup, back-face cull, tiled binning
-  raster.py   — Pallas visibility kernel: per-tile edge tests + reversed-Z
-                GreaterEqual depth over (tile_h, tile_w) framebuffer tiles
-  shade.py    — deferred shading: perspective-correct attribute
-                interpolation + textured Lambert/Phong (basic.frag port
+  geometry.py — vertex transform, clipless 2D-homogeneous triangle
+                setup, back-face cull, tiled binning
+  raster.py   — visibility raster: per-tile edge tests + reversed-Z
+                GreaterEqual depth (Pallas kernel through Triton, plus
+                the plain jax.numpy formulation it is checked against)
+  resolve.py  — per-pixel G-buffer: gather of the winning face's
+                attributes, perspective-correct interpolation, mip select
+  shade.py    — texture gather + textured Lambert/Phong (basic.frag port
                 at the semantic level)
   present.py  — linear -> sRGB encode, host readback helpers
 
@@ -18,32 +20,22 @@ wgpu fixed-function rasterizer state at src/Renderer.zig:396-462 (CCW
 front, back cull, Depth32Float GreaterEqual, no MSAA).
 """
 
-import contextlib
-
 import jax
-
-_force_interpret = False
 
 
 def interpret_mode() -> bool:
-    """Pallas kernels run compiled on TPU, interpreted elsewhere (CI)."""
-    return _force_interpret or jax.default_backend() != "tpu"
+    """Whether Pallas kernels run in the interpreter (read at trace time).
 
-
-@contextlib.contextmanager
-def force_interpret():
-    """Force Pallas interpret mode for kernels TRACED inside the context
-    (the flag is read at trace time, so build + first-call the render
-    function within). This is the validation-layer analog of the wgpu
-    uncaptured-error callback (src/Renderer.zig:1229-1247): interpret
-    mode executes the kernel body as plain XLA ops on the SAME device,
-    so diffing compiled-vs-interpreted output catches Pallas-only
-    semantics bugs (e.g. stale-VMEM output-block revisits) that CPU CI
-    cannot see. Used by the bench parity gate (tpurast/cli.py)."""
-    global _force_interpret
-    prev = _force_interpret
-    _force_interpret = True
-    try:
-        yield
-    finally:
-        _force_interpret = prev
+    The CPU backend (the test suite) interprets; the GPU backend compiles
+    through Triton. Any other backend has no compiled route and raises
+    rather than silently interpreting on an accelerator.
+    """
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(
+        f"no Pallas route for backend {backend!r}: kernels compile for 'gpu' "
+        "and are interpreted only on 'cpu'"
+    )

@@ -32,15 +32,12 @@ import jax.numpy as jnp
 # extent instead of its absolute screen position — without this, f32
 # cancellation in the cross products sprays phantom coverage off
 # sub-pixel triangles (the fixed-point-edge-function problem, SURVEY §7
-# hard-part #1). aabb_ymin/ymax (screen-pixel y extent, conservative)
-# let the raster kernel restrict per-pixel evaluation to the tile row
-# groups a triangle can actually cover.
+# hard-part #1). aabb_ymin/ymax are the screen-pixel y extent
+# (conservative).
 SETUP_WIDTH = 24
 FIELD_FACE_ID = 15
 FIELD_ANCHOR_X = 16
 FIELD_ANCHOR_Y = 17
-FIELD_YMIN = 18
-FIELD_YMAX = 19
 
 
 def transform_vertices(positions, normals, vert_prim, models, normal_mats, view_proj):
@@ -57,7 +54,9 @@ def transform_vertices(positions, normals, vert_prim, models, normal_mats, view_
     m = models[vert_prim]  # (V, 4, 4)
     pos_h = jnp.concatenate([positions, jnp.ones_like(positions[:, :1])], axis=1)
     world_h = jnp.einsum("vij,vj->vi", m, pos_h)
-    clip = world_h @ view_proj.T
+    # HIGHEST: a default-precision f32 matmul may run in TF32 on the GPU,
+    # moving vertices by ~1e-3 relative and breaking coverage ties.
+    clip = jnp.matmul(world_h, view_proj.T, precision=jax.lax.Precision.HIGHEST)
     nm = normal_mats[vert_prim]
     world_normal = jnp.einsum("vij,vj->vi", nm, normals)
     return clip, world_h[:, :3], world_normal
@@ -70,15 +69,14 @@ def transform_corners(corner_world, view_proj):
     model->world half of basic.vert runs once at scene build,
     device/scene.py — model matrices are static per scene). Per frame
     only the view-projection runs, and there are NO per-frame vertex
-    gathers: XLA:TPU dynamic row gathers cost ~7-76 ns each, so the
-    former clip[faces] + vattr[faces] fetches (5 gathered rows per
-    face) dominated the geometry stage on 100k+-face scenes.
-    Returns clip (F, 3, 4).
+    gathers. Returns clip (F, 3, 4).
     """
     f = corner_world.shape[0]
     w = corner_world.reshape(f * 3, 3)
     world_h = jnp.concatenate([w, jnp.ones_like(w[:, :1])], axis=1)
-    return (world_h @ view_proj.T).reshape(f, 3, 4)
+    # HIGHEST: see transform_vertices (TF32 would move vertices).
+    clip = jnp.matmul(world_h, view_proj.T, precision=jax.lax.Precision.HIGHEST)
+    return clip.reshape(f, 3, 4)
 
 
 def triangle_setup(clip, faces, n_faces, width, height):
@@ -89,8 +87,8 @@ def triangle_setup(clip, faces, n_faces, width, height):
     n_faces: static or traced count of valid faces. Returns dict with:
       setup: (F, 16) f32 — edge matrix rows + z_clip + w_clip
       valid: (F,) bool — in-range, front-facing, non-degenerate
-      aabb:  (F, 4) f32 — (minx, miny, maxx, maxy) in pixels, full screen
-             for triangles crossing w<=0
+      aabb:  (F, 4) f32 — (minx, miny, maxx, maxy) in pixels of the
+             triangle's part in front of the near plane
     """
     c = clip if faces is None else clip[faces]  # (F, 3, 4)
     w = c[..., 3]
@@ -129,15 +127,37 @@ def triangle_setup(clip, faces, n_faces, width, height):
     # AABB) — a camera inside the scene then explodes the pair count.
     valid = in_range & finite & front & any_ok
 
-    # Screen AABB. Vertices behind/at the eye plane (w <= eps) make the
-    # projected extent unbounded -> conservatively bin to the full screen.
-    any_behind = ~jnp.all(w_ok, axis=-1)
+    # Screen AABB of the part of the triangle that can produce fragments.
+    # The clip-volume test keeps z/w in [0, 1] with w > 0, i.e. the
+    # half-space d = w - z >= 0 (the near plane under reversed-Z, where
+    # z_clip is the constant znear). A triangle crossing that plane is
+    # clipped to it for BINNING ONLY (coverage still comes from the edge
+    # functions): its projected extent is then bounded, instead of a
+    # full-screen AABB for every triangle that straddles the eye plane.
+    d = w - c[..., 2]  # (F, 3)
+    inside = d >= 0.0
+    c_next = jnp.roll(c, -1, axis=1)
+    d_next = jnp.roll(d, -1, axis=1)
+    crosses = inside != (d_next >= 0.0)  # edge i -> i+1 crosses the plane
+    t = d / jnp.where(crosses, d - d_next, 1.0)
+    cand = jnp.concatenate([c, c + t[..., None] * (c_next - c)], axis=1)  # (F, 6, 4)
+    cw = cand[..., 3]
+    cand_ok = jnp.concatenate([inside, crosses], axis=1) & (cw > eps)
+    cwd = jnp.where(cand_ok, cw, 1.0)
+    csx = (cand[..., 0] + cw) * (width * 0.5) / cwd
+    csy = (cw - cand[..., 1]) * (height * 0.5) / cwd
     big = jnp.float32(1e9)
-    minx = jnp.where(any_behind, 0.0, jnp.min(jnp.where(w_ok, sx, big), axis=-1))
-    miny = jnp.where(any_behind, 0.0, jnp.min(jnp.where(w_ok, sy, big), axis=-1))
-    maxx = jnp.where(any_behind, jnp.float32(width), jnp.max(jnp.where(w_ok, sx, -big), axis=-1))
-    maxy = jnp.where(any_behind, jnp.float32(height), jnp.max(jnp.where(w_ok, sy, -big), axis=-1))
+    minx = jnp.min(jnp.where(cand_ok, csx, big), axis=-1)
+    miny = jnp.min(jnp.where(cand_ok, csy, big), axis=-1)
+    maxx = jnp.max(jnp.where(cand_ok, csx, -big), axis=-1)
+    maxy = jnp.max(jnp.where(cand_ok, csy, -big), axis=-1)
+    # Clipped vertices are computed, not given: widen their box a pixel
+    # so rounding at the plane cannot drop a boundary pixel's tile.
+    clipped = ~jnp.all(inside, axis=-1)
+    pad = jnp.where(clipped, 1.0, 0.0)
+    minx, miny, maxx, maxy = minx - pad, miny - pad, maxx + pad, maxy + pad
     aabb = jnp.stack([minx, miny, maxx, maxy], axis=-1)
+    valid = valid & jnp.any(cand_ok, axis=-1)
 
     # Off-screen culling.
     on_screen = (maxx >= 0.0) & (maxy >= 0.0) & (minx < width) & (miny < height)
@@ -157,8 +177,8 @@ def triangle_setup(clip, faces, n_faces, width, height):
             face_ids.astype(jnp.float32)[:, None],
             ax[:, None],  # field 16: anchor x
             ay[:, None],  # field 17: anchor y
-            miny[:, None],  # field 18: screen-space y extent (row-group
-            maxy[:, None],  # field 19: restriction in the raster kernel)
+            miny[:, None],  # field 18: screen-space y extent
+            maxy[:, None],  # field 19
             jnp.zeros((c.shape[0], SETUP_WIDTH - 20), dtype=jnp.float32),
         ],
         axis=-1,
@@ -217,8 +237,7 @@ def bin_pairs(
     scenes (T ~ 2k, F ~ 1.2M). This path instead emits (tile, face)
     pairs directly and sorts them by (tile, face) with one 2-key
     lax.sort; within a tile the secondary key keeps draw order exact.
-    No scatters (XLA:TPU scatter costs ~7 ns per attempted update) and
-    no dense T x F intermediates.
+    No scatters and no dense T x F intermediates.
 
       * round j in [0, tiles_per_face): face f contributes its j-th
         overlapped tile (row-major over its AABB tile range) — pure
@@ -235,17 +254,13 @@ def bin_pairs(
       counts:     (T,) i32
       overflow:   scalar i32 dropped pair count (huge faces beyond budget)
 
-    The XLA sort has a few-ms floor on TPU regardless of size, so the
-    renderer selects this path only when T*F makes the scan worse
-    (kernels are equivalent; see renderer._configure_target).
+    Both binning paths emit the same bins (see renderer._configure_target
+    for the choice).
 
     Within a tile, pairs sort by the face's QUANTIZED screen-y extent
     (8-row buckets) before draw order. Order within a bin is free to
     choose: the raster merge is commutative (max depth, ties to max
-    face id), and the resolve selection matches by face id — but the
-    raster kernel restricts each 16-triangle sub-block to the UNION of
-    its faces' row groups, so y-coherent sub-blocks evaluate ~the
-    per-face minimum instead of the whole tile. The bucket rides the
+    face id) and the resolve gathers by face id. The bucket rides the
     sort key's low bits (key = tile * YB + ybucket), so the 2-operand
     sort cost is unchanged.
     """
@@ -331,14 +346,13 @@ def bin_triangles(
     """Tiled binning: chunked rank-by-cumsum scan -> COMPACT pair lists.
 
     Draw-order ranks come from a dense (T, chunk) overlap mask + cumsum —
-    scatter-free and VPU-bound — processed over face chunks inside a
+    scatter-free, compute-bound — processed over face chunks inside a
     lax.scan so memory stays bounded. Two passes: pass 1 accumulates
     per-tile counts (one mask sum per chunk), then per-tile offsets are
     one exclusive cumsum; pass 2 recomputes ranks and scatters face ids
     at offsets[tile] + rank into ONE compact (P,) pair buffer — the same
     output form as bin_pairs, with no (T, K) padded bin matrix and no
-    sort (XLA's lax.sort has a few-ms floor; the scan is faster until
-    T*F explodes — the renderer picks per target, see bin_pairs).
+    sort.
 
     Per chunk:
       * "small" faces (AABB spanning <= tiles_per_face tiles) enumerate

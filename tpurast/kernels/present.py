@@ -22,10 +22,9 @@ def encode_srgb_u8(planes, width: int, height: int):
     """(4, Hp, Wp) linear f32 planes -> (4, height, width) sRGB u8
     planes, cropping tile padding. Alpha is linear (pass-through).
 
-    Channel-PLANAR throughout: a (H, W, 4) device array tiles its minor
-    dim 4 onto 128 lanes (32x pad); the host-side presenter interleaves
-    to (H, W, 4) after readback (tpurast/present.py) — the TPU analog of
-    the swapchain's surface-format swizzle."""
+    Channel-PLANAR throughout, like the shading planes; the host-side
+    presenter interleaves to (H, W, 4) after readback (tpurast/present.py)
+    — the analog of the swapchain's surface-format swizzle."""
     fb = planes[:, :height, :width]
     rgb = linear_to_srgb(fb[:3])
     a = jnp.clip(fb[3:4], 0.0, 1.0)

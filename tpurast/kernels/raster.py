@@ -1,38 +1,33 @@
-"""Pallas visibility-buffer rasterization kernel (segment-scheduled).
+"""Visibility-buffer rasterization over binned screen tiles.
 
-The screen is divided into tiles; binning (kernels/geometry.py) produced a
-per-tile list of triangles. Rather than padding every tile to a worst-case
-capacity, the raster grid enumerates *work segments*: (tile, chunk-of-128-
-triangles) pairs, built on device from the bin counts. Sparse tiles cost
-one segment; dense tiles get several consecutive segments; the total work
-and the pre-gathered setup are O(binned pairs), not O(tiles x capacity).
-This is the TPU analog of a GPU binned rasterizer's per-tile work queue,
-expressed as a data-dependent Pallas index map over a static grid
-(PrefetchScalarGridSpec: segment tables live in SMEM and drive both the
-kernel and the BlockSpec index maps).
+The screen is divided into tiles; binning (kernels/geometry.py) produced
+a per-tile list of triangles. The segment plan groups each tile's list
+into CHUNK-triangle segments laid out consecutively per tile, with the
+per-face setup rows pre-gathered in segment order (gather_segment_rows),
+so a tile's triangles are one contiguous run of setup rows.
 
-Each segment walks its triangles in sub-blocks of TRI_SUB (a multiple of
-the f32 sublane width): per-triangle setup fields are (TRI_SUB, 1)
-sublane columns (setup is pre-gathered row-major, (G*128, SETUP_WIDTH)),
-pixels are a (1, P) lane row, so every edge evaluation is a legal
-single-axis-broadcast multiply producing (TRI_SUB, P). Two levels of
-work restriction cut the evaluated (pixel, triangle) pairs by >10x vs a
-dense (pixels x 128-lane) formulation:
-  * triangle occupancy is TRI_SUB-granular — a tile bin with c triangles
-    costs ceil(c/TRI_SUB) sub-blocks, not a full 128-lane chunk;
-  * each sub-block only evaluates the tile ROW GROUPS (8 pixel rows)
-    its triangles' screen-y extent can touch (FIELD_YMIN/YMAX), a
-    hierarchical coverage test at 8-row granularity.
-Both loops are dynamic-trip-count fori_loops (data-dependent work,
-static shapes — the XLA-friendly form of a GPU rasterizer's
-variable-length per-tile work queue).
+Two formulations compute the same visibility buffer:
+
+  * rasterize_tiles — a Pallas kernel compiled through Triton. One program
+    owns one tile: it reads its run of setup rows itself (start/count
+    tables, no scalar prefetch), walks the tile's triangles in a dynamic
+    fori_loop (data-dependent trip count: a sparse tile costs a few
+    iterations, a dense one many), keeps depth and face id in registers,
+    and stores the tile once. Programs never share output, so the order
+    in which the GPU schedules them does not matter.
+  * rasterize_tiles_plain — the plain jax.numpy formulation: a dense edge
+    test of every segment's CHUNK triangles against every pixel of its
+    tile, a max over the triangle axis, and a per-tile max across
+    segments. It evaluates padded lanes and whole tiles, and is the
+    reference the kernel is checked against.
 
 The per-pixel result is the reversed-Z depth plus the winning *face id*
-(visibility buffer; shading happens once per pixel in kernels/shade.py).
+(visibility buffer; shading happens once per pixel downstream).
 Draw-order semantics match wgpu: depth compare GreaterEqual
 (src/Renderer.zig:414-417) means max depth wins and, on ties, the later
-draw wins — face ids within a tile bin are in draw order, so a lane max
-over the face-id field implements the tie-break exactly.
+draw wins. Face ids are in draw order, so both formulations take the
+lexicographic max of (depth, face id) — independent of the order in
+which triangles are visited.
 
 Replaces the GPU rasterizer + depth unit state of src/Renderer.zig:
 396-462/:1014: triangle list, CCW front + back cull (in geometry setup),
@@ -49,31 +44,20 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from tpurast import kernels as _k
-
-CHUNK = 128  # triangles per segment == lane width
-
-from tpurast.kernels.geometry import (  # noqa: E402
+from tpurast.kernels.geometry import (
     FIELD_ANCHOR_X,
     FIELD_ANCHOR_Y,
     FIELD_FACE_ID,
-    FIELD_YMAX,
-    FIELD_YMIN,
-    SETUP_WIDTH,
 )
 
-# Pixel rows per row group == f32 sublane width (the merge reshape
-# (ROW_SUB, tile_w) must be register-shaped).
-SUB = 8
-# Triangles per sub-block (multiple of the sublane width). Larger blocks
-# amortize the dynamic-loop per-iteration overhead (~0.8 us: bound
-# checks + field slicing) that dominates dense scenes — 4K instancing
-# ran ~77k sub-blocks at 8 (= ~60 ms of loop overhead) — at the cost of
-# evaluating all of a sub-block's triangles against the union of their
-# row groups.
-TRI_SUB = 16
+CHUNK = 128  # triangles per segment
+
+# Segments evaluated at once by the plain formulation (bounds its dense
+# (batch, CHUNK, tile pixels) intermediates).
+PLAIN_SEGMENT_BATCH = 256
 
 
 def _edge_covered(e, a, b):
@@ -85,172 +69,66 @@ def _edge_covered(e, a, b):
     return (e < 0.0) | ((e == 0.0) & on_edge_ok)
 
 
-def _raster_kernel(
-    counts_ref,  # SMEM (T,) int32 — per-tile bin sizes
-    seg_tile_ref,  # SMEM (G,) int32 — segment -> tile
-    seg_block_ref,  # SMEM (G,) int32 — segment -> chunk index within tile
-    row0_ref,  # SMEM (1,) int32 — global tile-row offset (sharded slabs)
-    setup_ref,  # VMEM (CHUNK, SETUP_WIDTH) f32 — this segment's setup rows
-    out_ref,  # VMEM (2, tile_h, tile_w) f32: plane 0 depth, 1 face id (-1 none)
-    *,
-    tile_h: int,
-    tile_w: int,
-    tiles_x: int,
-    clear_depth: float,
-):
-    gpx = SUB * tile_w  # pixels per row group
-    g = pl.program_id(0)
-    t = seg_tile_ref[g]
-    j = seg_block_ref[g]
-    # Pixel coordinates are GLOBAL (tile row + slab offset): a sharded
-    # slab evaluates the exact same edge arithmetic as the single-chip
-    # frame, so slab output rows are bit-identical to a full-frame render.
-    ty = t // tiles_x + row0_ref[0]
-    tx = t % tiles_x
+def _fragment(px, py, f):
+    """Coverage and depth of triangle setup `f` at pixel centers (px, py).
 
-    @pl.when(j == 0)
-    def _init():
-        out_ref[0] = jnp.full((tile_h, tile_w), clear_depth, jnp.float32)
-        out_ref[1] = jnp.full((tile_h, tile_w), -1.0, jnp.float32)
-
-    count = jnp.minimum(jnp.maximum(counts_ref[t] - j * CHUNK, 0), CHUNK)
-
-    # Global pixel-center coordinates (+0.5: Vulkan/WebGPU sample points)
-    # of row group 0; group gi adds 8*gi to the y coordinate. Pixels are
-    # processed as (1, 8*tile_w) linear rows (triangles on sublanes) and
-    # reshaped to (8, tile_w) only at merge time.
-    lin = jax.lax.broadcasted_iota(jnp.int32, (1, gpx), 1)
-    px = (tx * tile_w).astype(jnp.float32) + 0.5 + (lin % tile_w).astype(jnp.float32)
-    py0 = (ty * tile_h).astype(jnp.float32) + 0.5 + (lin // tile_w).astype(jnp.float32)
-    ty0 = ty * tile_h
-
-    @pl.when(count > 0)
-    def _chunk():
-        def sub_block(b, _):
-            rows = setup_ref[pl.ds(pl.multiple_of(b * TRI_SUB, TRI_SUB), TRI_SUB), :]
-
-            def f(i):  # per-triangle field as a (TRI_SUB, 1) sublane column
-                return rows[:, i : i + 1]
-
-            sub_idx = (
-                jax.lax.broadcasted_iota(jnp.int32, (TRI_SUB, 1), 0) + b * TRI_SUB
-            )
-            active = sub_idx < count  # (TRI_SUB, 1)
-
-            # Row-group range: the y extent of this sub-block's faces,
-            # conservatively widened one pixel (coverage happens at
-            # centers strictly inside [ymin, ymax]; slack is free at
-            # 8-row granularity).
-            big = jnp.float32(1e9)
-            groups = tile_h // SUB
-            ymin = jnp.min(jnp.where(active, f(FIELD_YMIN), big))
-            ymax = jnp.max(jnp.where(active, f(FIELD_YMAX), -big))
-            g0 = jnp.clip((jnp.floor(ymin).astype(jnp.int32) - 1 - ty0) // SUB, 0, groups - 1)
-            g1 = jnp.clip((jnp.floor(ymax).astype(jnp.int32) + 1 - ty0) // SUB, -1, groups - 1)
-
-            # Two sign regions: all-negative is the ordinary interior;
-            # the all-positive region only exists for triangles crossing
-            # w=0 (external triangles, their far sheet). The positive
-            # test is GATED on an actual w-crossing — for ordinary
-            # triangles the region is analytically empty but float noise
-            # on sub-pixel triangles can make all three e's positive,
-            # spraying phantom dust across the screen.
-            crossing = (f(12) <= 0.0) | (f(13) <= 0.0) | (f(14) <= 0.0)  # (TRI_SUB, 1)
-
-            def row_group(gi, _):
-                py = py0 + (gi * SUB).astype(jnp.float32)  # (1, P)
-                # Anchored evaluation: coordinates relative to the
-                # per-face anchor keep products small (f32 precision for
-                # tiny triangles).
-                pxr = px - f(FIELD_ANCHOR_X)  # (TRI_SUB, P)
-                pyr = py - f(FIELD_ANCHOR_Y)
-                e0 = pxr * f(0) + pyr * f(1) + f(2)  # (TRI_SUB, P)
-                e1 = pxr * f(3) + pyr * f(4) + f(5)
-                e2 = pxr * f(6) + pyr * f(7) + f(8)
-
-                cov_n = (
-                    _edge_covered(e0, f(0), f(1))
-                    & _edge_covered(e1, f(3), f(4))
-                    & _edge_covered(e2, f(6), f(7))
-                )
-                cov_p = (
-                    crossing
-                    & _edge_covered(-e0, -f(0), -f(1))
-                    & _edge_covered(-e1, -f(3), -f(4))
-                    & _edge_covered(-e2, -f(6), -f(7))
-                )
-                esum = e0 + e1 + e2
-                ez = e0 * f(9) + e1 * f(10) + e2 * f(11)
-                ew = e0 * f(12) + e1 * f(13) + e2 * f(14)
-                # Interpolated view depth w(p) = ew/esum must be positive
-                # (in front of the eye); z in [0, 1] is the clip-volume
-                # test.
-                w_front = (ew * esum) > 0.0
-                z = ez / jnp.where(ew == 0.0, jnp.float32(1e-30), ew)
-                z_ok = (z >= 0.0) & (z <= 1.0)
-                covered = (cov_n | cov_p) & w_front & z_ok & active  # (TRI_SUB, P)
-
-                z_masked = jnp.where(covered, z, jnp.float32(-1.0))
-                z_best = jnp.max(z_masked, axis=0, keepdims=True)  # (1, P)
-                # Later draw wins depth ties (GreaterEqual): face ids are
-                # in draw order within the bin, so max face id among the
-                # best-z sublanes (and merge-order across sub-blocks,
-                # which are also in draw order).
-                cand = jnp.where(covered & (z_masked == z_best), f(FIELD_FACE_ID), -1.0)
-                fid_best = jnp.max(cand, axis=0, keepdims=True)  # (1, P)
-
-                # Merge into the (tile_h, tile_w) framebuffer block: the
-                # (1, 8*tw) linear row group IS rows [8gi, 8gi+8) of the
-                # tile in row-major order — reshape, compare, store.
-                z2 = z_best.reshape(SUB, tile_w)
-                f2 = fid_best.reshape(SUB, tile_w)
-                r0 = pl.multiple_of(gi * SUB, SUB)
-                cur = out_ref[:, pl.ds(r0, SUB), :]  # (2, 8, tw)
-                passes = (z2 >= cur[0]) & (f2 >= 0.0)
-                out_ref[:, pl.ds(r0, SUB), :] = jnp.stack(
-                    [
-                        jnp.where(passes, z2, cur[0]),
-                        jnp.where(passes, f2, cur[1]),
-                    ],
-                    axis=0,
-                )
-                return 0
-
-            jax.lax.fori_loop(g0, g1 + 1, row_group, 0)
-            return 0
-
-        n_sub = (count + TRI_SUB - 1) // TRI_SUB
-        jax.lax.fori_loop(0, n_sub, sub_block, 0)
+    f(k) returns setup field k, broadcastable against px/py. Shared
+    verbatim by both formulations so they evaluate the same arithmetic.
+    Returns (covered bool, z f32).
+    """
+    # Anchored evaluation: coordinates relative to the per-face anchor
+    # keep products small (f32 precision for tiny triangles).
+    pxr = px - f(FIELD_ANCHOR_X)
+    pyr = py - f(FIELD_ANCHOR_Y)
+    e0 = pxr * f(0) + pyr * f(1) + f(2)
+    e1 = pxr * f(3) + pyr * f(4) + f(5)
+    e2 = pxr * f(6) + pyr * f(7) + f(8)
+    # Two sign regions: all-negative is the ordinary interior; the
+    # all-positive region only exists for triangles crossing w=0
+    # (external triangles, their far sheet). The positive test is GATED
+    # on an actual w-crossing — for ordinary triangles the region is
+    # analytically empty but float noise on sub-pixel triangles can make
+    # all three e's positive, spraying phantom dust across the screen.
+    crossing = (f(12) <= 0.0) | (f(13) <= 0.0) | (f(14) <= 0.0)
+    cov_n = (
+        _edge_covered(e0, f(0), f(1))
+        & _edge_covered(e1, f(3), f(4))
+        & _edge_covered(e2, f(6), f(7))
+    )
+    cov_p = (
+        crossing
+        & _edge_covered(-e0, -f(0), -f(1))
+        & _edge_covered(-e1, -f(3), -f(4))
+        & _edge_covered(-e2, -f(6), -f(7))
+    )
+    esum = e0 + e1 + e2
+    ez = e0 * f(9) + e1 * f(10) + e2 * f(11)
+    ew = e0 * f(12) + e1 * f(13) + e2 * f(14)
+    # Interpolated view depth w(p) = ew/esum must be positive (in front
+    # of the eye); z in [0, 1] is the clip-volume test.
+    w_front = (ew * esum) > 0.0
+    z = ez / jnp.where(ew == 0.0, jnp.float32(1e-30), ew)
+    z_ok = (z >= 0.0) & (z <= 1.0)
+    return (cov_n | cov_p) & w_front & z_ok, z
 
 
-# Sentinel block index for tail segments: no init, no work. Small enough
-# that sentinel * CHUNK stays far from int32 overflow, larger than any
-# real per-tile block count (2^23 blocks = 2^30 triangles in one tile).
+# Sentinel block index for tail segments: no work. Small enough that
+# sentinel * CHUNK stays far from int32 overflow, larger than any real
+# per-tile block count (2^23 blocks = 2^30 triangles in one tile).
 SENTINEL_BLOCK = 1 << 23
 
 
 def build_segments_grouped(tile_counts, n_segments: int):
     """Segment tables, TILE-GROUPED: all of a tile's segments consecutive.
 
-    Grouping is a CORRECTNESS requirement, not a layout choice. The
-    raster kernel read-modify-writes its tile's output block across the
-    tile's segments; Pallas keeps an output block resident in VMEM only
-    across CONSECUTIVE grid steps with the same out-index (the standard
-    accumulation pattern). An interleaved schedule (all block-0 segments
-    first, extras later — round 1's layout) revisits out-blocks after
-    moving away, and on real TPU the revisit starts from stale VMEM:
-    dense tiles (>128 binned faces) silently lost earlier chunks.
-    (CPU interpret mode materializes refs, so tests never saw it.)
-
     Layout: tile t occupies segments [start[t], start[t] + blocks[t]);
-    blocks[t] >= 1 always (every tile clears + rasterizes chunk 0), extra
-    blocks are granted by a waterfall over the headroom budget in tile
-    order (early tiles first; a starved tile keeps block 0 and drops the
-    rest, counted). Tail slots map to the LAST tile with a sentinel
-    block index — same out-index as the final real segment, so they
-    neither clear nor flush garbage onto another tile's rectangle.
+    blocks[t] >= 1 always, extra blocks are granted by a waterfall over
+    the headroom budget in tile order (early tiles first; a starved tile
+    keeps block 0 and drops the rest, counted). Tail slots map to the
+    LAST tile with a sentinel block index, so they carry no triangles.
 
-    Returns (seg_tile (G,), seg_block (G,), n_dropped scalar).
+    Returns (seg_tile (G,), seg_block (G,), start (T,), blocks (T,),
+    n_dropped scalar).
     """
     t = tile_counts.shape[0]
     assert n_segments >= t
@@ -273,65 +151,122 @@ def build_segments_grouped(tile_counts, n_segments: int):
     # Past `total`, seg_tile is already t-1 (the running max saturates at
     # the last marker); only the block index needs the no-op sentinel.
     seg_block = jnp.where(live, seg_block, jnp.int32(SENTINEL_BLOCK))
-    return seg_tile, seg_block, jnp.sum(extra) - jnp.sum(allowed)
+    dropped = jnp.sum(extra) - jnp.sum(allowed)
+    return seg_tile, seg_block, start.astype(jnp.int32), blocks, dropped
 
 
 def plan_segments(bins, *, segment_headroom: int):
     """Segment schedule from binned pairs (geometry.bin_triangles or
     geometry.bin_pairs — both emit the same compact pair-list form).
 
-    Per-segment face ids come straight from the sorted pair list —
-    no (T, K) padded bin matrix is ever materialized, so per-tile
-    counts are unbounded (no bin_capacity clamp, no bin overflow).
+    Per-segment face ids come straight from the sorted pair list — no
+    (T, K) padded bin matrix is ever materialized. The plan carries
+    PAIR-SLOT indices (seg_slots); gather_segment_rows() composes them
+    with the pair list into one row gather of G*CHUNK rows.
 
-    The plan carries PAIR-SLOT indices (seg_slots), not face ids:
-    per-face tables are gathered in pair order first (a straight row
-    gather) and then re-gathered per slot — two fast row gathers
-    instead of one scalar s32 gather feeding a second row gather
-    (XLA:TPU's scalar-element gather runs ~5x slower per row than its
-    wide-row gather; measured 1.7 ms vs 0.3+0.15 ms at 1080p). Use
-    gather_segment_rows() to build a kernel's row input.
+    tile_start[t] is the first setup row of tile t (segment start *
+    CHUNK) and tile_count[t] the triangles rasterized there: the bin size
+    capped by the segments the headroom granted (the rest is `dropped`).
     """
     counts = bins["counts"]
     offsets = bins["offsets"]
     pair_faces = bins["pair_faces"]
     t = counts.shape[0]
     n_segments = t + segment_headroom
-    seg_tile, seg_block, dropped = build_segments_grouped(counts, n_segments)
+    seg_tile, seg_block, start, blocks, dropped = build_segments_grouped(
+        counts, n_segments
+    )
 
     lane = jnp.arange(CHUNK, dtype=jnp.int32)[None, :]
     block = jnp.minimum(seg_block, SENTINEL_BLOCK)[:, None]
     slot = offsets[seg_tile][:, None] + block * CHUNK + lane  # (G, C)
     slot = jnp.clip(slot, 0, pair_faces.shape[0] - 1)
+    seg_count = jnp.clip(counts[seg_tile] - seg_block * CHUNK, 0, CHUNK)
     return {
         "seg_tile": seg_tile,
-        "seg_block": seg_block,
+        "seg_count": seg_count.astype(jnp.int32),
         "seg_slots": slot.reshape(-1),
         "pair_faces": pair_faces,
         "n_segments": n_segments,
-        "max_blocks": SENTINEL_BLOCK,
+        "tile_start": start * CHUNK,
+        "tile_count": jnp.minimum(counts, blocks * CHUNK).astype(jnp.int32),
         "dropped": dropped,
     }
 
 
 def gather_segment_rows(table, plan):
-    """Per-segment row input for a kernel: (G*CHUNK, W) from (F, W).
+    """Per-segment row input: (G*CHUNK, W) from (F, W).
 
-    Index composition order matters a lot: gathering table rows in PAIR
-    order first looks appealing (two wide row gathers) but materializes
-    a (P, W) intermediate where P is the STATIC worst-case pair count
-    (TILES_PER_FACE * F) — at 4K instancing that is a 10M-row, 2 GB
-    gather costing ~900 ms/frame. Composing the indices instead
-    (seg_faces = pair_faces[slots], then one row gather) touches only
-    G*CHUNK rows: the s32 element gather runs ~6.6 ns/row, but G*CHUNK
-    is orders of magnitude smaller than P on heavy scenes.
+    Composes the indices (seg_faces = pair_faces[slots], then one row
+    gather) instead of gathering rows in pair order first: the pair list
+    has a STATIC worst-case length (TILES_PER_FACE * F), orders of
+    magnitude more rows than G*CHUNK on heavy scenes.
     """
     seg_faces = plan["pair_faces"][plan["seg_slots"]]
     return table[seg_faces]
 
 
+def _row0(tile_row_offset):
+    if tile_row_offset is None:
+        return jnp.zeros((1,), jnp.int32)
+    return jnp.reshape(jnp.asarray(tile_row_offset, jnp.int32), (1,))
+
+
+def _raster_kernel(
+    start_ref,  # (T,) int32 — first setup row of each tile
+    count_ref,  # (T,) int32 — triangles to rasterize in each tile
+    row0_ref,  # (1,) int32 — global tile-row offset (sharded slabs)
+    rows_ref,  # (G*CHUNK, SETUP_WIDTH) f32 — setup rows in segment order
+    depth_ref,  # (tile_h, tile_w) f32 out
+    fid_ref,  # (tile_h, tile_w) int32 out
+    *,
+    tile_h: int,
+    tile_w: int,
+    tiles_x: int,
+    clear_depth: float,
+):
+    t = pl.program_id(0)
+    # Pixel coordinates are GLOBAL (tile row + slab offset): a sharded
+    # slab evaluates the exact same edge arithmetic as the single-card
+    # frame, so slab output rows are bit-identical to a full-frame render.
+    ty = t // tiles_x + row0_ref[0]
+    tx = t % tiles_x
+    base = start_ref[t]
+    n = count_ref[t]
+    iy = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
+    ix = jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
+    # Pixel centers (+0.5: Vulkan/WebGPU sample points).
+    px = (tx * tile_w + ix).astype(jnp.float32) + 0.5
+    py = (ty * tile_h + iy).astype(jnp.float32) + 0.5
+
+    def body(i, carry):
+        zb, fb = carry
+        r = base + i
+
+        def f(k):
+            return rows_ref[r, k]
+
+        covered, z = _fragment(px, py, f)
+        fid = f(FIELD_FACE_ID).astype(jnp.int32)
+        better = covered & ((z > zb) | ((z == zb) & (fid > fb)))
+        return jnp.where(better, z, zb), jnp.where(better, fid, fb)
+
+    init = (
+        jnp.full((tile_h, tile_w), clear_depth, jnp.float32),
+        jnp.full((tile_h, tile_w), -1, jnp.int32),
+    )
+    zb, fb = jax.lax.fori_loop(0, n, body, init)
+    depth_ref[...] = zb
+    fid_ref[...] = fb
+
+
+def _check_tile(tile_h: int, tile_w: int) -> None:
+    for d in (tile_h, tile_w):
+        if d <= 0 or d & (d - 1):
+            raise ValueError(f"tile {tile_h}x{tile_w}: sides must be powers of two")
+
+
 def rasterize_tiles(
-    tile_counts,  # (T,) int32
     setup,  # (F, SETUP_WIDTH) f32 triangle setup (see geometry.SETUP_WIDTH)
     plan,  # from plan_segments
     *,
@@ -342,31 +277,16 @@ def rasterize_tiles(
     clear_depth: float = 0.0,
     tile_row_offset=None,
 ):
-    """Run the visibility kernel over all tiles.
+    """Visibility raster through the Pallas kernel (one program per tile).
 
-    Returns the visibility buffer DIRECTLY in framebuffer layout:
-    (2, H, W) f32 with plane 0 = depth, plane 1 = face id (-1 = none),
-    H = tiles_y*tile_h, W = tiles_x*tile_w. Each segment's output block
-    is its tile's (2, tile_h, tile_w) framebuffer rectangle — no detile
-    transpose ever happens (it cost ~4 ms/frame at 1080p as XLA ops).
-
-    tile_row_offset (scalar int32, default 0) shifts pixel-coordinate
-    evaluation down by whole tile rows WITHOUT changing which output
-    rows are written — the sharded path renders its slab with global
-    coordinates, bit-identical to the same rows of a full-frame render.
+    Returns (depth (H, W) f32, fid (H, W) int32) in framebuffer layout,
+    H = tiles_y*tile_h, W = tiles_x*tile_w; fid == -1 where no triangle
+    covers the pixel. tile_row_offset (scalar int32, default 0) shifts
+    pixel-coordinate evaluation down by whole tile rows WITHOUT changing
+    which output rows are written (sharded slabs).
     """
-    assert tile_h % SUB == 0, "tile height must be a multiple of the sublane width"
-    assert tile_w % 128 == 0, "tile width must be a multiple of the lane width"
-    n_segments = plan["n_segments"]
-    max_blocks = plan["max_blocks"]
-    if tile_row_offset is None:
-        tile_row_offset = jnp.zeros((), jnp.int32)
-    row0 = jnp.reshape(tile_row_offset.astype(jnp.int32), (1,))
-
-    # Row gather: (G*CHUNK, SETUP_WIDTH), sublane-major (one DMA block of
-    # CHUNK contiguous rows per segment; no transpose needed).
-    setup_rows = gather_segment_rows(setup, plan)
-
+    _check_tile(tile_h, tile_w)
+    rows = gather_segment_rows(setup, plan)
     kernel = functools.partial(
         _raster_kernel,
         tile_h=tile_h,
@@ -374,46 +294,106 @@ def rasterize_tiles(
         tiles_x=tiles_x,
         clear_depth=clear_depth,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,  # counts, seg_tile, seg_block, row0
-        grid=(n_segments,),
-        in_specs=[
-            pl.BlockSpec(
-                (CHUNK, SETUP_WIDTH),
-                # Tail segments (sentinel block index) all map to block 0:
-                # a repeated block index skips the DMA entirely.
-                lambda g, counts, seg_tile, seg_block, row0: (
-                    jnp.where(seg_block[g] >= jnp.int32(max_blocks), 0, g),
-                    0,
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (2, tile_h, tile_w),
-                lambda g, counts, seg_tile, seg_block, row0: (
-                    0,
-                    seg_tile[g] // tiles_x,
-                    seg_tile[g] % tiles_x,
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    return pl.pallas_call(
+    out_spec = pl.BlockSpec((tile_h, tile_w), lambda t: (t // tiles_x, t % tiles_x))
+    h, w = tiles_y * tile_h, tiles_x * tile_w
+    depth, fid = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(tiles_x * tiles_y,),
+        in_specs=[pl.no_block_spec] * 4,
+        out_specs=[out_spec, out_spec],
         out_shape=[
-            jax.ShapeDtypeStruct((2, tiles_y * tile_h, tiles_x * tile_w), jnp.float32),
+            jax.ShapeDtypeStruct((h, w), jnp.float32),
+            jax.ShapeDtypeStruct((h, w), jnp.int32),
         ],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=4, num_stages=1),
         interpret=_k.interpret_mode(),
-    )(tile_counts, plan["seg_tile"], plan["seg_block"], row0, setup_rows)[0]
+        name="raster_tiles",
+    )(plan["tile_start"], plan["tile_count"], _row0(tile_row_offset), rows)
+    return depth, fid
+
+
+def rasterize_tiles_plain(
+    setup,
+    plan,
+    *,
+    tile_h: int,
+    tile_w: int,
+    tiles_x: int,
+    tiles_y: int,
+    clear_depth: float = 0.0,
+    tile_row_offset=None,
+):
+    """The plain jax.numpy formulation of rasterize_tiles (same result).
+
+    Every segment's CHUNK triangles are tested densely against every
+    pixel of its tile; the winner per pixel is the max depth, ties to the
+    max face id (two exact max reductions); segments of one tile then
+    merge by the same rule.
+    """
+    _check_tile(tile_h, tile_w)
+    n_seg = plan["n_segments"]
+    t_total = tiles_x * tiles_y
+    p = tile_h * tile_w
+    rows = gather_segment_rows(setup, plan).reshape(n_seg, CHUNK, -1)
+    row0 = _row0(tile_row_offset)[0]
+    lin = jnp.arange(p, dtype=jnp.int32)
+    lane = jnp.arange(CHUNK, dtype=jnp.int32)[:, None]
+    neg_inf = jnp.float32(-jnp.inf)
+
+    def segment(args):
+        seg_rows, tile, count = args  # (CHUNK, SW), (), ()
+        ty = tile // tiles_x + row0
+        tx = tile % tiles_x
+        px = (tx * tile_w + lin % tile_w).astype(jnp.float32)[None, :] + 0.5
+        py = (ty * tile_h + lin // tile_w).astype(jnp.float32)[None, :] + 0.5
+
+        def f(k):
+            return seg_rows[:, k : k + 1]  # (CHUNK, 1)
+
+        covered, z = _fragment(px, py, f)
+        covered = covered & (lane < count)
+        zm = jnp.where(covered, z, neg_inf)
+        z_best = jnp.max(zm, axis=0)  # (P,)
+        fid = f(FIELD_FACE_ID).astype(jnp.int32)
+        cand = jnp.where(covered & (zm == z_best[None, :]), fid, -1)
+        return z_best, jnp.max(cand, axis=0)
+
+    z_seg, f_seg = jax.lax.map(
+        segment,
+        (rows, plan["seg_tile"], plan["seg_count"]),
+        batch_size=min(PLAIN_SEGMENT_BATCH, n_seg),
+    )  # (G, P) each
+    seg_tile = plan["seg_tile"]
+    z_tile = jax.ops.segment_max(
+        z_seg, seg_tile, num_segments=t_total, indices_are_sorted=True
+    )
+    f_tile = jax.ops.segment_max(
+        jnp.where(z_seg == z_tile[seg_tile], f_seg, -1),
+        seg_tile,
+        num_segments=t_total,
+        indices_are_sorted=True,
+    )
+    passes = (f_tile >= 0) & (z_tile >= clear_depth)
+    depth = jnp.where(passes, z_tile, jnp.float32(clear_depth))
+    fid = jnp.where(passes, f_tile, -1)
+
+    def to_image(a):
+        a = a.reshape(tiles_y, tiles_x, tile_h, tile_w)
+        return a.transpose(0, 2, 1, 3).reshape(tiles_y * tile_h, tiles_x * tile_w)
+
+    return to_image(depth), to_image(fid)
+
+
+RASTERIZERS = {"kernel": rasterize_tiles, "plain": rasterize_tiles_plain}
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("tile_h", "tile_w", "tiles_x", "tiles_y", "clear_depth", "segment_headroom"),
+    static_argnames=(
+        "tile_h", "tile_w", "tiles_x", "tiles_y", "clear_depth",
+        "segment_headroom", "impl",
+    ),
 )
 def rasterize_visibility(
     bins,  # dict from geometry.bin_triangles / bin_pairs
@@ -426,17 +406,18 @@ def rasterize_visibility(
     clear_depth: float = 0.0,
     segment_headroom: int = 2048,
     tile_row_offset=None,
+    impl: str = "kernel",
 ):
     """Visibility raster to framebuffer-layout images.
 
-    Returns (depth (H, W) f32, fid (H, W) int32, dropped_segments scalar)
-    with H = tiles_y*tile_h, W = tiles_x*tile_w; fid == -1 where no
-    triangle covers the pixel. dropped_segments > 0 means segment_headroom
-    was too small for this frame and triangles were not rasterized.
+    Returns (depth (H, W) f32, fid (H, W) int32, dropped scalar) with
+    H = tiles_y*tile_h, W = tiles_x*tile_w; fid == -1 where no triangle
+    covers the pixel. dropped > 0 means segment_headroom was too small
+    for this frame and triangles were not rasterized. impl selects the
+    kernel or the plain formulation.
     """
     plan = plan_segments(bins, segment_headroom=segment_headroom)
-    vis = rasterize_tiles(
-        bins["counts"],
+    depth, fid = RASTERIZERS[impl](
         setup,
         plan,
         tile_h=tile_h,
@@ -446,4 +427,4 @@ def rasterize_visibility(
         clear_depth=clear_depth,
         tile_row_offset=tile_row_offset,
     )
-    return vis[0], vis[1].astype(jnp.int32), plan["dropped"]
+    return depth, fid, plan["dropped"]

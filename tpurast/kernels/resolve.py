@@ -1,34 +1,24 @@
 """Forward attribute resolve: per-pixel G-buffer from the visibility pass.
 
-The deferred shade path (kernels/shade.py) gathers a 104-float row per
-PIXEL (2M rows at 1080p) and runs the interpolation math over the
-materialized rows — the dominant frame cost on v5e. This kernel moves
-interpolation into a second Pallas sweep over the SAME segment schedule
-as the raster pass (kernels/raster.py), where attribute rows are fetched
-per SEGMENT (O(binned pairs), ~3 orders of magnitude fewer rows):
+Plain XLA. Each covered pixel gathers its winning face's attribute row
+(pack_resolve_attrs: ~57 floats per face, a table that stays resident in
+the GPU's L2 for demo-class scenes) by face id, then evaluates:
 
-  1. Per segment, a match matrix m[r, c, x] = (face_id[lane c] ==
-     fid[pixel r, x]) marks which pixels this chunk's triangles won —
-     ONE vector compare over (tile_h, CHUNK, tile_w).
-  2. The winning triangle's ~56 attribute scalars are selected per pixel
-     with ONE MXU contraction  sel = ATTR (A, C) . m (th, C, tw)  over
-     C. With Precision.HIGHEST (3-way bf16 split = full 24-bit mantissa)
-     and m exactly {0, 1}, the selection is BIT-EXACT — verified on
-     v5e — which matters because atlas offsets ride through it.
-  3. Perspective-correct barycentrics, world/normal/UV interpolation,
-     analytic UV screen derivatives, LOD and mip selection all run on
-     (tile_h, tile_w) pixel planes in VMEM, writing a compact
-     17-float/pixel G-buffer. XLA then only does the texel-row gather +
-     lighting (shade.shade_gbuffer).
+  * perspective-correct barycentrics from the face's anchored edge
+    functions, and world/normal/UV interpolation;
+  * analytic UV screen derivatives (closed-form gradients of the
+    rational interpolant — no quad neighborhoods), the LOD, the mip pair
+    and the anisotropic footprint;
 
-All blocks are FRAMEBUFFER rectangles: the visibility input and the
-G-buffer output are (C, H, W) arrays and each segment addresses its
-tile's (C, tile_h, tile_w) window — pixels stay in image layout end to
-end, so no detile transposes exist anywhere in the frame.
+writing a compact A_OUT-plane G-buffer. shade.shade_gbuffer then does the
+texel-row gathers + lighting. The formulas and their op order are those
+of shade.shade_deferred, so the forward and deferred paths agree
+bit-for-bit on the same backend.
 
 Texture info is carried as f32: mip offsets as offset/256 (exact — the
 atlas aligns mip allocations to 256 quad rows, device/textures.py), mip
-dimensions recomputed as max(w0 >> l, 1) via exact power-of-two scaling.
+dimensions recomputed as max(floor(w0 * 2^-l), 1) by exact power-of-two
+scaling.
 
 Semantics replaced: the attribute-interpolation half of the GPU's
 fixed-function rasterizer + the vertex-output interpolators feeding
@@ -37,17 +27,9 @@ shaders/src/basic.frag (reference pipeline src/Renderer.zig:396-462).
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpurast import kernels as _k
-from tpurast.kernels.raster import CHUNK
-
-# Attribute-table row layout (A_IN, per face), selected per pixel:
+# Attribute-table row layout (A_IN, per face), gathered per pixel:
 #   0..8   edge matrix E (a0,b0,c0, a1,b1,c1, a2,b2,c2)
 #   9,10   screen anchor x, y
 #   11     face id
@@ -57,25 +39,16 @@ from tpurast.kernels.raster import CHUNK
 #   36..51 per-mip atlas offset / 256 (16 levels)
 #   52,53  mip-0 width, height
 #   54     mip count
-#   55     constant 1.0 (selects into the per-pixel "matched" flag)
-#   56     texture id (exact small integer in f32)
-#   57..72 page-rect base y per mip (texel (0,0) page row; pages.py)
-#   73..88 page-rect base x per mip
-A_IN = 89
+#   55     texture id (exact small integer in f32)
+A_IN = 56
 
 # G-buffer plane layout (A_OUT planes, per pixel):
 #   0..2 world | 3..5 normal | 6,7 u,v | 8 off0/256 | 9,10 tw0,th0
 #   11,12 tw1,th1 | 13 mip frac | 14,15 aniso major du,dv
 #   16 matched flag | 17 aniso probe span (shade.aniso_footprint)
-#   18 texture id | 19 mip level l0
-#   20,21 own-mip page base (y, x) | 22,23 parent-mip page base (y, x)
 # (No off1: the parent-mip texels ride the own-mip atlas row,
-# device/textures.py, so only the parent DIMENSIONS are needed.
-# Planes 18/19 feed the windowed sampler's tile planning; 20..23 are
-# the page coordinates of texel (0,0) at the pixel's own/parent mips,
-# so the sampler's covering works in ONE page coordinate system across
-# every (texture, mip) — kernels/sampler.py.)
-A_OUT = 24
+# device/textures.py, so only the parent DIMENSIONS are needed.)
+A_OUT = 18
 MAX_MIPS = 16
 
 
@@ -88,12 +61,6 @@ def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas)
     offsets = atlas["offsets"]  # (T, 16) i32, 256-aligned
     sizes = atlas["sizes"]  # (T, 16, 2) i32
     n_mips = atlas["n_mips"]  # (T,) i32
-    if "page_origins" in atlas:
-        # Page base = texel (0,0) page coords = origin (which points at
-        # the ghost texel (-1,-1)) + 1, per mip (device/pages.py).
-        page_base = (atlas["page_origins"] + 1).astype(jnp.float32)  # (T, 16, 2)
-    else:
-        page_base = jnp.zeros((offsets.shape[0], MAX_MIPS, 2), jnp.float32)
     tex_cols = jnp.concatenate(
         [
             (offsets // 256).astype(jnp.float32),
@@ -103,9 +70,6 @@ def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas)
         ],
         axis=1,
     )[face_tex]  # (F, 19)
-    page_cols = jnp.concatenate(
-        [page_base[:, :, 0], page_base[:, :, 1]], axis=1
-    )[face_tex]  # (F, 32): base-y per mip, then base-x per mip
     return jnp.concatenate(
         [
             setup[:, 0:9],  # E
@@ -115,239 +79,115 @@ def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas)
             face_world.reshape(f, 9),
             face_normal.reshape(f, 9),
             tex_cols,
-            jnp.ones((f, 1), dtype=jnp.float32),
             face_tex.astype(jnp.float32)[:, None],
-            page_cols,
         ],
         axis=1,
     ).astype(jnp.float32)
 
 
-def _resolve_kernel(
-    counts_ref,  # SMEM (T,) int32
-    seg_tile_ref,  # SMEM (G,) int32
-    seg_block_ref,  # SMEM (G,) int32
-    row0_ref,  # SMEM (1,) int32 — global tile-row offset (sharded slabs)
-    attr_ref,  # VMEM (CHUNK, A_IN) f32 — this segment's attribute rows
-    vis_ref,  # VMEM (2, th, tw) f32 — raster output (depth, face id)
-    out_ref,  # VMEM (A_OUT, th, tw) f32 — G-buffer tile
-    *,
-    tile_h: int,
-    tile_w: int,
-    tiles_x: int,
-    max_anisotropy: int,
-):
-    g = pl.program_id(0)
-    t = seg_tile_ref[g]
-    j = seg_block_ref[g]
-    # Global pixel rows (see raster._raster_kernel): sharded slabs
-    # interpolate with the exact single-chip arithmetic.
-    ty = t // tiles_x + row0_ref[0]
-    tx = t % tiles_x
-
-    @pl.when(j == 0)
-    def _init():
-        out_ref[...] = jnp.zeros_like(out_ref)
-
-    count = jnp.minimum(jnp.maximum(counts_ref[t] - j * CHUNK, 0), CHUNK)
-
-    @pl.when(count > 0)
-    def _work():
-        fid = vis_ref[1]  # (th, tw)
-        lane_fid = attr_ref[:, 11].reshape(1, CHUNK, 1)
-        lane_idx = jax.lax.broadcasted_iota(jnp.int32, (1, CHUNK, 1), 1)
-        # Padded lanes clamp to the bin's last slot (duplicate face ids) —
-        # they MUST be masked or a winner in the last real lane selects 2x.
-        # m: (th, CHUNK, tw) — both operands broadcast along minor dims.
-        m = ((lane_fid == fid[:, None, :]) & (lane_idx < count)).astype(jnp.float32)
-        sel = jax.lax.dot_general(
-            attr_ref[...],  # (CHUNK, A_IN)
-            m,  # (th, CHUNK, tw)
-            (((0,), (1,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,  # bit-exact selection
-            preferred_element_type=jnp.float32,
-        )  # (A_IN, th, tw)
-
-        def s(i):
-            return sel[i]  # (th, tw)
-
-        matched = s(55)
-
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, tile_w), 1)
-        rowi = jax.lax.broadcasted_iota(jnp.int32, (tile_h, 1), 0)
-        px = (tx * tile_w).astype(jnp.float32) + 0.5 + col.astype(jnp.float32) - s(9)
-        py = (ty * tile_h).astype(jnp.float32) + 0.5 + rowi.astype(jnp.float32) - s(10)
-        e0 = s(0) * px + s(1) * py + s(2)
-        e1 = s(3) * px + s(4) * py + s(5)
-        e2 = s(6) * px + s(7) * py + s(8)
-        esum = e0 + e1 + e2
-        # Mirrors shade._safe_div so forward == deferred bit-for-bit.
-        eps = jnp.float32(1e-30)
-        den = jnp.where(jnp.abs(esum) < eps, jnp.where(esum < 0, -eps, eps), esum)
-        inv = 1.0 / den
-        u0 = e0 * inv
-        u1 = e1 * inv
-        u2 = e2 * inv
-
-        def interp(b0, b1, b2):
-            return u0 * s(b0) + u1 * s(b1) + u2 * s(b2)
-
-        uv_u = interp(12, 14, 16)
-        uv_v = interp(13, 15, 17)
-        wx, wy, wz = interp(18, 21, 24), interp(19, 22, 25), interp(20, 23, 26)
-        nx_, ny_, nz_ = interp(27, 30, 33), interp(28, 31, 34), interp(29, 32, 35)
-
-        # Analytic UV screen derivatives (uv = N(p)/D(p), both linear).
-        d_x = s(0) + s(3) + s(6)
-        d_y = s(1) + s(4) + s(7)
-        inv2 = inv * inv
-
-        def duv(c0, c1, c2):
-            nval = e0 * s(c0) + e1 * s(c1) + e2 * s(c2)
-            gx = s(0) * s(c0) + s(3) * s(c1) + s(6) * s(c2)
-            gy = s(1) * s(c0) + s(4) * s(c1) + s(7) * s(c2)
-            return (gx * esum - nval * d_x) * inv2, (gy * esum - nval * d_y) * inv2
-
-        du_dx, du_dy = duv(12, 14, 16)
-        dv_dx, dv_dy = duv(13, 15, 17)
-
-        w0 = s(52)
-        h0 = s(53)
-        n_mips = s(54)
-        rho2_x = (du_dx * w0) ** 2 + (dv_dx * h0) ** 2
-        rho2_y = (du_dy * w0) ** 2 + (dv_dy * h0) ** 2
-        if max_anisotropy > 1:
-            from tpurast.kernels.shade import aniso_footprint
-
-            rho2, maj_du, maj_dv, span = aniso_footprint(
-                rho2_x, rho2_y, du_dx, du_dy, dv_dx, dv_dy, max_anisotropy
-            )
-        else:
-            rho2 = jnp.maximum(rho2_x, rho2_y)
-            maj_du = jnp.zeros_like(rho2)
-            maj_dv = maj_du
-            span = maj_du
-
-        lod = 0.5 * jnp.log2(jnp.maximum(rho2, 1e-24))
-        lod = jnp.clip(lod, 0.0, n_mips - 1.0)
-        l0 = jnp.floor(lod)
-        l1 = jnp.minimum(l0 + 1.0, n_mips - 1.0)
-        tfrac = lod - l0
-
-        # Mip select: unrolled masked accumulation over the 16 levels
-        # (no dynamic minor-dim indexing on TPU). Level dims derive from
-        # mip 0 by exact power-of-two scaling: max(floor(w0 * 2^-l), 1).
-        # Only the level-0 tap needs an atlas offset — parent-mip texels
-        # ride the same row (device/textures.py) — so no off1.
-        off0 = jnp.zeros_like(l0)
-        pow0 = jnp.zeros_like(l0)
-        pow1 = jnp.zeros_like(l0)
-        oy0 = jnp.zeros_like(l0)
-        ox0 = jnp.zeros_like(l0)
-        oy1 = jnp.zeros_like(l0)
-        ox1 = jnp.zeros_like(l0)
-        for mi in range(MAX_MIPS):
-            lvl = jnp.float32(mi)
-            pw = jnp.float32(2.0 ** (-mi))
-            m0 = l0 == lvl
-            m1 = l1 == lvl
-            off0 = off0 + jnp.where(m0, s(36 + mi), 0.0)
-            pow0 = pow0 + jnp.where(m0, pw, 0.0)
-            pow1 = pow1 + jnp.where(m1, pw, 0.0)
-            oy0 = oy0 + jnp.where(m0, s(57 + mi), 0.0)
-            ox0 = ox0 + jnp.where(m0, s(73 + mi), 0.0)
-            oy1 = oy1 + jnp.where(m1, s(57 + mi), 0.0)
-            ox1 = ox1 + jnp.where(m1, s(73 + mi), 0.0)
-        tw0 = jnp.maximum(jnp.floor(w0 * pow0), 1.0)
-        th0 = jnp.maximum(jnp.floor(h0 * pow0), 1.0)
-        tw1 = jnp.maximum(jnp.floor(w0 * pow1), 1.0)
-        th1 = jnp.maximum(jnp.floor(h0 * pow1), 1.0)
-
-        new = jnp.stack(
-            [
-                wx, wy, wz,
-                nx_, ny_, nz_,
-                uv_u, uv_v,
-                off0, tw0, th0,
-                tw1, th1,
-                tfrac, maj_du, maj_dv,
-                matched, span,
-                s(56), l0,
-                oy0, ox0, oy1, ox1,
-            ]
-            + [jnp.zeros_like(matched)] * (A_OUT - 24),
-            axis=0,
-        )  # (A_OUT, th, tw)
-        out_ref[...] = jnp.where(matched > 0.0, new, out_ref[...])
-
-
 def resolve_gbuffer(
-    tile_counts,  # (T,) int32
-    vis,  # (2, H, W) f32 raster output (framebuffer layout)
+    fid,  # (H, W) int32 winning face id, -1 = none
     attrs,  # (F, A_IN) f32 from pack_resolve_attrs
-    plan,  # from raster.plan_segments (MUST be the raster pass's plan)
     *,
-    tile_h: int,
-    tile_w: int,
-    tiles_x: int,
     max_anisotropy: int = 1,
-    tile_row_offset=None,
+    y_offset=0,
 ):
-    """Second segment sweep: per-pixel G-buffer (A_OUT, H, W)."""
-    _, h, w = vis.shape
-    n_segments = plan["n_segments"]
-    max_blocks = plan["max_blocks"]
-    from tpurast.kernels.raster import gather_segment_rows
+    """Per-pixel G-buffer (A_OUT, H, W) f32; uncovered pixels are zero.
 
-    attr_rows = gather_segment_rows(attrs, plan)  # (G*C, A_IN) row-major
-    if tile_row_offset is None:
-        tile_row_offset = jnp.zeros((), jnp.int32)
-    row0 = jnp.reshape(tile_row_offset.astype(jnp.int32), (1,))
+    y_offset (scalar pixel rows, default 0): sharded slabs interpolate
+    with GLOBAL pixel rows, bit-identical to a single-card frame.
+    """
+    h, w = fid.shape
+    matched = fid >= 0
+    rows = attrs[jnp.maximum(fid, 0)]  # (H, W, A_IN): THE gather
 
-    kernel = functools.partial(
-        _resolve_kernel,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        tiles_x=tiles_x,
-        max_anisotropy=max_anisotropy,
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_segments,),
-        in_specs=[
-            pl.BlockSpec(
-                (CHUNK, A_IN),
-                lambda g, counts, seg_tile, seg_block, row0: (
-                    jnp.where(seg_block[g] >= jnp.int32(max_blocks), 0, g),
-                    0,
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (2, tile_h, tile_w),
-                lambda g, counts, seg_tile, seg_block, row0: (
-                    0,
-                    seg_tile[g] // tiles_x,
-                    seg_tile[g] % tiles_x,
-                ),
-                memory_space=pltpu.VMEM,
-            ),
+    def s(i):
+        return rows[..., i]  # (H, W)
+
+    y0 = jnp.asarray(y_offset, jnp.float32)
+    px = jnp.arange(w, dtype=jnp.float32)[None, :] + 0.5 - s(9)
+    py = jnp.arange(h, dtype=jnp.float32)[:, None] + y0 + 0.5 - s(10)
+    e0 = s(0) * px + s(1) * py + s(2)
+    e1 = s(3) * px + s(4) * py + s(5)
+    e2 = s(6) * px + s(7) * py + s(8)
+    esum = e0 + e1 + e2
+    # Mirrors shade._safe_div so forward == deferred bit-for-bit.
+    eps = jnp.float32(1e-30)
+    den = jnp.where(jnp.abs(esum) < eps, jnp.where(esum < 0, -eps, eps), esum)
+    inv = jnp.float32(1.0) / den
+    u0 = e0 * inv
+    u1 = e1 * inv
+    u2 = e2 * inv
+
+    def interp(b0, b1, b2):
+        return u0 * s(b0) + u1 * s(b1) + u2 * s(b2)
+
+    uv_u = interp(12, 14, 16)
+    uv_v = interp(13, 15, 17)
+    wx, wy, wz = interp(18, 21, 24), interp(19, 22, 25), interp(20, 23, 26)
+    nx_, ny_, nz_ = interp(27, 30, 33), interp(28, 31, 34), interp(29, 32, 35)
+
+    # Analytic UV screen derivatives (uv = N(p)/D(p), both linear).
+    d_x = s(0) + s(3) + s(6)
+    d_y = s(1) + s(4) + s(7)
+    inv2 = inv * inv
+
+    def duv(c0, c1, c2):
+        nval = e0 * s(c0) + e1 * s(c1) + e2 * s(c2)
+        gx = s(0) * s(c0) + s(3) * s(c1) + s(6) * s(c2)
+        gy = s(1) * s(c0) + s(4) * s(c1) + s(7) * s(c2)
+        return (gx * esum - nval * d_x) * inv2, (gy * esum - nval * d_y) * inv2
+
+    du_dx, du_dy = duv(12, 14, 16)
+    dv_dx, dv_dy = duv(13, 15, 17)
+
+    w0 = s(52)
+    h0 = s(53)
+    n_mips = s(54)
+    rho2_x = (du_dx * w0) ** 2 + (dv_dx * h0) ** 2
+    rho2_y = (du_dy * w0) ** 2 + (dv_dy * h0) ** 2
+    if max_anisotropy > 1:
+        from tpurast.kernels.shade import aniso_footprint
+
+        rho2, maj_du, maj_dv, span = aniso_footprint(
+            rho2_x, rho2_y, du_dx, du_dy, dv_dx, dv_dy, max_anisotropy
+        )
+    else:
+        rho2 = jnp.maximum(rho2_x, rho2_y)
+        maj_du = jnp.zeros_like(rho2)
+        maj_dv = maj_du
+        span = maj_du
+
+    lod = 0.5 * jnp.log2(jnp.maximum(rho2, 1e-24))
+    lod = jnp.clip(lod, 0.0, n_mips - 1.0)
+    l0 = jnp.floor(lod)
+    l1 = jnp.minimum(l0 + 1.0, n_mips - 1.0)
+    tfrac = lod - l0
+
+    # Mip select by index. Level dims derive from mip 0 by exact
+    # power-of-two scaling: max(floor(w0 * 2^-l), 1). Only the level-0
+    # tap needs an atlas offset — parent-mip texels ride the same row.
+    l0i = jnp.clip(l0.astype(jnp.int32), 0, MAX_MIPS - 1)
+    l1i = jnp.clip(l1.astype(jnp.int32), 0, MAX_MIPS - 1)
+    off0 = jnp.take_along_axis(rows[..., 36:52], l0i[..., None], axis=-1)[..., 0]
+    pow2 = jnp.asarray([2.0**-i for i in range(MAX_MIPS)], jnp.float32)
+    pow0 = pow2[l0i]
+    pow1 = pow2[l1i]
+    tw0 = jnp.maximum(jnp.floor(w0 * pow0), 1.0)
+    th0 = jnp.maximum(jnp.floor(h0 * pow0), 1.0)
+    tw1 = jnp.maximum(jnp.floor(w0 * pow1), 1.0)
+    th1 = jnp.maximum(jnp.floor(h0 * pow1), 1.0)
+
+    planes = jnp.stack(
+        [
+            wx, wy, wz,
+            nx_, ny_, nz_,
+            uv_u, uv_v,
+            off0, tw0, th0,
+            tw1, th1,
+            tfrac, maj_du, maj_dv,
+            jnp.ones_like(wx), span,
         ],
-        out_specs=[
-            pl.BlockSpec(
-                (A_OUT, tile_h, tile_w),
-                lambda g, counts, seg_tile, seg_block, row0: (
-                    0,
-                    seg_tile[g] // tiles_x,
-                    seg_tile[g] % tiles_x,
-                ),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((A_OUT, h, w), jnp.float32)],
-        interpret=_k.interpret_mode(),
-    )(tile_counts, plan["seg_tile"], plan["seg_block"], row0, attr_rows, vis)[0]
+        axis=0,
+    )  # (A_OUT, H, W)
+    return jnp.where(matched[None], planes, 0.0)

@@ -1,32 +1,29 @@
-"""Deferred shading: perspective-correct interpolation + lighting + texture.
+"""Shading: perspective-correct interpolation + lighting + texture.
 
-Consumes the visibility buffer (per-pixel winning face id) and shades each
-covered pixel exactly once:
+Two paths share one sampling and lighting formula:
 
-  1. ONE fat-row gather per pixel fetches everything about the winning
-     triangle: edge setup, per-vertex world position / normal / UV, and
-     texture id, packed into a 104-float row (XLA:TPU gather cost is per
-     ROW, nearly independent of row width — four narrow gathers cost 4x
-     one fat gather on v5e).
-  2. Homogeneous edge functions are re-evaluated at the pixel; weights
+  * shade_gbuffer — the forward tail: kernels/resolve.py already
+    interpolated everything per pixel, so this is texture taps + lighting.
+  * shade_deferred — consumes the visibility buffer directly: one fat-row
+    gather per pixel fetches everything about the winning triangle (edge
+    setup, per-vertex world position / normal / UV, texture info packed
+    into a 104-float row) and interpolates in place. It is the second
+    formulation the forward path is checked against.
+
+Common steps:
+  1. Homogeneous edge functions are re-evaluated at the pixel; weights
      u_i = e_i / sum(e) are the perspective-correct barycentrics (see
      kernels/geometry.py).
-  3. Mip level comes from analytic UV screen derivatives (closed-form
-     gradients of the rational interpolant — no quad neighborhoods on
-     TPU, SURVEY §7 hard-part #4); per-level atlas offset/size are
-     lane-selected from a second fat row (masked reduction, not a
-     minor-dim gather).
-  4. Trilinear = ONE row gather (own-mip quad + parent-mip window
+  2. Mip level comes from analytic UV screen derivatives (closed-form
+     gradients of the rational interpolant — no quad neighborhoods,
+     SURVEY §7 hard-part #4).
+  3. Trilinear = ONE row gather (own-mip quad + parent-mip window
      packed per row, device/textures.py) + in-register blends.
-  5. Lighting: ambient + Lambert diffuse + Phong specular with the
+  4. Lighting: ambient + Lambert diffuse + Phong specular with the
      specular mask in albedo alpha — basic.frag:15-38, same constants.
 
-LAYOUT RULE (v5e): every elementwise array keeps the PIXEL axis minor.
-Channel-minor shapes like (..., 4) tile as (sublane, lane=4->128) — a
-32x pad in both VMEM traffic and VPU work (measured: the whole shading
-tail ran ~32x padded in round 1). All math here is channel-PLANAR:
-rgba live in separate (..., N) planes (or on a small major axis), and
-the only (..., C)-minor tensor is the gathered texel row itself.
+All math is channel-planar: rgba live in separate (H, W) planes, and the
+only channel-minor tensors are gathered rows.
 """
 
 from __future__ import annotations
@@ -104,12 +101,10 @@ def _trilerp(texels, off0, tw0, th0, tw1, th1, tfrac, u, v, texel_format="float"
     plus the 3x3 window of the parent mip anchored at ((x0-1)//2,
     (y0-1)//2) — the parent footprint for ANY sample point mapping to
     quad (x0, y0) lands inside that window at offset dx, dy in {0, 1},
-    derived exactly below. Gather row count (not width) is the v5e
-    sampling wall, so folding both mip taps into one row halves the
-    texture-unit cost.
+    derived exactly below. Folding both mip taps into one row makes a
+    trilinear sample one gather.
 
-    All arithmetic is channel-planar: returns 4 planes (r, g, b, a)
-    shaped like `u` — no (..., 4)-minor temporaries (32x lane padding).
+    Returns 4 planes (r, g, b, a) shaped like `u`.
     """
     wf = tw0.astype(jnp.float32)
     hf = th0.astype(jnp.float32)
@@ -121,9 +116,7 @@ def _trilerp(texels, off0, tw0, th0, tw1, th1, tfrac, u, v, texel_format="float"
     fy = y - y0
     x0i = jnp.mod(x0.astype(jnp.int32), tw0)
     y0i = jnp.mod(y0.astype(jnp.int32), th0)
-    # ONE transpose turns the gathered (..., 52) rows channel-planar:
-    # every subsequent per-channel access is a major-axis row (free view)
-    # instead of a single-lane strided slice of a 52->128-padded array.
+    # ONE transpose turns the gathered (..., 52) rows channel-planar.
     row = jnp.moveaxis(texels[off0 + y0i * tw0 + x0i], -1, 0)  # (52, ...)
 
     # Parent-mip footprint: same sample point in mip l+1 coordinates.
@@ -263,7 +256,7 @@ def aniso_footprint(rho2_x, rho2_y, du_dx, du_dy, dv_dx, dv_dy, n: int):
         span 0, so all n probes coincide and the result is EXACTLY the
         single trilinear tap — no over-blur from fixed probe counts.
 
-    Shared by the deferred shade and the resolve kernel so the two paths
+    Shared by the deferred shade and the resolve pass so the two paths
     stay bit-identical (same formulas, same op order).
     """
     rho2_max = jnp.maximum(rho2_x, rho2_y)
@@ -289,14 +282,11 @@ def probe_count(span, maj_du, maj_dv, tw0, th0, n: int):
     abstract anisotropy RATIO alone over-counts wherever the lod clamp
     collapsed the footprint: at the mip-chain tail (tiny textures, deep
     minification) the whole probe train lands inside one texel and every
-    probe returns the same bilinear — ratio-count probes there are pure
-    waste, measured 99.99%% of demo-scene pixels at ratio >= 2 but 88%%
-    with sub-texel trains (tools/aniso_mode_stats.py). Isotropic pixels
-    have span 0 and pay one probe, exactly as before.
+    probe returns the same bilinear. Isotropic pixels have span 0 and pay
+    one probe.
 
-    This exact expression is shared by the gather loops here and the
-    windowed sampler's plan + sample kernels (kernels/sampler.py), so
-    every path integrates the identical quadrature."""
+    Shared by both shading paths, so they integrate the identical
+    quadrature."""
     ext = jnp.maximum(jnp.abs(maj_du) * tw0, jnp.abs(maj_dv) * th0) * span
     return jnp.clip(
         jnp.ceil(ext - jnp.float32(1e-4)), 1.0, jnp.float32(n)
@@ -305,8 +295,7 @@ def probe_count(span, maj_du, maj_dv, tw0, th0, n: int):
 
 def _plane_select(planes, lane):
     """planes (16, ...) selected at per-element level index (masked
-    accumulation over the major axis — no minor-dim gather, no
-    channel-minor temporaries)."""
+    accumulation over the major axis)."""
     out = jnp.where(lane == 0, planes[0], 0)
     for i in range(1, 16):
         out = out + jnp.where(lane == i, planes[i], 0)
@@ -339,9 +328,7 @@ def shade_deferred(
     mask = fid >= 0
     f = jnp.maximum(fid, 0)
 
-    # THE gather, then one transpose to channel-planar (104, H, W) so
-    # every attribute access is a major-axis row, not a strided
-    # single-lane slice of a lane-padded array.
+    # THE gather, then one transpose to channel-planar (104, H, W).
     rows = jnp.moveaxis(shade_rows[f], -1, 0)
     y0 = jnp.asarray(y_offset, jnp.float32)
     px = jnp.arange(w, dtype=jnp.float32)[None, :] + 0.5 - rows[16]  # anchored
@@ -424,10 +411,9 @@ def shade_deferred(
         )
         # Per-pixel probe count (probe_count): only pixels whose
         # footprint needs probe i contribute to it, and positions/
-        # normalization use the pixel's own count — identical quadrature
-        # to the windowed sampler's data-dependent probe loop. The own
-        # mip level's dims give the effective extent (XLA CSEs this
-        # lod math with trilinear()'s interior).
+        # normalization use the pixel's own count. The own mip level's
+        # dims give the effective extent (XLA CSEs this lod math with
+        # trilinear()'s interior).
         lod_pc = jnp.clip(
             0.5 * jnp.log2(jnp.maximum(rho2_used, 1e-24)),
             0.0,
@@ -474,7 +460,7 @@ def shade_gbuffer(
     blend: str = "alpha",
     texel_format: str = "float",
 ):
-    """Forward-path shading tail: the resolve kernel already interpolated
+    """Forward-path shading tail: the resolve pass already interpolated
     everything per pixel, so this is just texture taps (the only remaining
     gathers: one 52-float quad row per trilinear sample) + the basic.frag
     lighting — same formulas and op order as shade_deferred so the two
@@ -500,7 +486,7 @@ def shade_gbuffer(
     th1 = g(12).astype(jnp.int32)
     tfrac = g(13)
     maj_du, maj_dv = g(14), g(15)
-    span = g(17)  # probe spread fraction from aniso_footprint (in-kernel)
+    span = g(17)  # probe spread fraction from aniso_footprint (resolve)
 
     def trilinear_at(u, v):
         return _trilerp(

@@ -3,29 +3,62 @@
 The reference draws a semi-transparent "Frametime: X ms" box pinned
 top-left plus a settings window with a VSync checkbox
 (src/Renderer.zig:965-976, :1182-1207). Headless equivalent: the overlay
-is composited onto the presented host image (PIL bitmap font), and the
-"settings" surface is the RendererConfig/engine API.
+is composited onto the presented host image in numpy (a 3x5 bitmap font
+scaled 2x), and the "settings" surface is the RendererConfig/engine API.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+# 3x5 glyphs, one string of 15 bits (rows top to bottom) per character.
+_GLYPHS = {
+    "0": "111101101101111",
+    "1": "010110010010111",
+    "2": "111001111100111",
+    "3": "111001111001111",
+    "4": "101101111001001",
+    "5": "111100111001111",
+    "6": "111100111101111",
+    "7": "111001001001001",
+    "8": "111101111101111",
+    "9": "111101111001111",
+    ".": "000000000000010",
+    "m": "000000111111101",
+    "s": "000011100001110",
+    " ": "000000000000000",
+}
+_SCALE = 2
+_BOX_RGB = np.array([20, 20, 30], np.float32)
+_BOX_ALPHA = 90.0 / 255.0  # ImGui overlay bg alpha 0.35 (src/Renderer.zig:1196)
+_TEXT_RGB = np.array([230, 230, 235], np.uint8)
+
+
+def _text_mask(text: str) -> np.ndarray:
+    """(5*S, 4*S*len) bool mask of `text` in the bitmap font."""
+    cols = []
+    for ch in text:
+        g = np.array([c == "1" for c in _GLYPHS.get(ch, _GLYPHS[" "])]).reshape(5, 3)
+        cols.append(np.pad(g, ((0, 0), (0, 1))))  # one column of spacing
+    mask = np.concatenate(cols, axis=1)
+    return np.kron(mask, np.ones((_SCALE, _SCALE), bool)).astype(bool)
+
 
 def draw_frametime_overlay(frame: np.ndarray, frametime_ms: float) -> np.ndarray:
     """Composite the stats box onto an (H, W, 3|4) u8 frame (copy)."""
-    from PIL import Image, ImageDraw
-
-    img = Image.fromarray(frame)
-    draw = ImageDraw.Draw(img, "RGBA")
-    text = f"Frametime: {frametime_ms:8.5f} ms"
-    x, y = 8, 8
-    tw = draw.textlength(text)
-    # Semi-transparent dark box like the ImGui overlay (bg alpha 0.35,
-    # src/Renderer.zig:1196).
-    draw.rectangle([x - 4, y - 4, x + tw + 4, y + 14], fill=(20, 20, 30, 90))
-    draw.text((x, y), text, fill=(230, 230, 235, 255))
-    return np.asarray(img)
+    img = np.array(frame, dtype=np.uint8, copy=True)
+    mask = _text_mask(f"{frametime_ms:8.5f} ms")
+    x, y, pad = 8, 8, 4
+    y0, x0 = max(y - pad, 0), max(x - pad, 0)
+    y1 = min(y + mask.shape[0] + pad, img.shape[0])
+    x1 = min(x + mask.shape[1] + pad, img.shape[1])
+    box = img[y0:y1, x0:x1, :3].astype(np.float32)
+    img[y0:y1, x0:x1, :3] = np.round(
+        box * (1.0 - _BOX_ALPHA) + _BOX_RGB * _BOX_ALPHA
+    ).astype(np.uint8)
+    m = mask[: max(img.shape[0] - y, 0), : max(img.shape[1] - x, 0)]
+    img[y : y + m.shape[0], x : x + m.shape[1], :3][m] = _TEXT_RGB
+    return img
 
 
 class FrameStats:

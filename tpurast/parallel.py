@@ -1,8 +1,8 @@
 """Multi-chip SPMD rendering: framebuffer tile-row sharding over a mesh.
 
 The reference is single-GPU; its parallelism is the rasterizer hardware
-(SURVEY §2.5). The TPU-native scale-out axis is screen space: tile rows
-shard across devices on a 1-D mesh ("tiles" axis). Rasterization is
+(SURVEY §2.5). Here the scale-out axis is screen space: tile rows shard
+across devices on a 1-D mesh ("tiles" axis). Rasterization is
 embarrassingly parallel after binning — each device bins and rasterizes
 only its slab, with no halo exchange (SURVEY §5 "long-context" analog).
 Scene buffers are replicated (small: MBs); per-slab framebuffers
@@ -11,7 +11,7 @@ of the bin-overflow counter (serves as the cross-chip health check).
 
 There is NO sharded pipeline fork: every device runs the SAME
 renderer.render_frame as a single chip, parameterized by its slab's
-global tile-row offset. All kernels evaluate edges/attributes in GLOBAL
+global tile-row offset. Every stage evaluates edges/attributes in GLOBAL
 pixel coordinates (kernels/raster.py, kernels/resolve.py,
 kernels/shade.py take a row offset; binning floors global tile rows
 before offsetting, kernels/geometry._tile_ranges) — so each slab's
@@ -24,10 +24,9 @@ from __future__ import annotations
 import functools
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from tpurast.renderer import render_frame
+from tpurast.renderer import render_frame, sizing
 
 
 def render_frame_sharded(
@@ -64,15 +63,14 @@ def render_frame_sharded(
             **frame_kwargs,
         )
         total_overflow = jax.lax.psum(out["bin_overflow"], axis)
-        total_miss = jax.lax.psum(out["window_miss_px"], axis)
-        return out["color"], out["depth"], total_overflow, total_miss
+        return out["color"], out["depth"], total_overflow
 
-    color, depth, overflow, window_miss = jax.shard_map(
+    color, depth, overflow = jax.shard_map(
         slab_fn,
         mesh=mesh,
         in_specs=(P(), P(), P()),
         # Color is channel-planar (4, H, W): slabs concatenate on rows.
-        out_specs=(P(None, axis, None), P(axis, None), P(), P()),
+        out_specs=(P(None, axis, None), P(axis, None), P()),
         # Pallas calls don't carry varying-mesh-axis metadata yet.
         check_vma=False,
     )(scene, view_proj, camera_position)
@@ -80,7 +78,6 @@ def render_frame_sharded(
         "color": color[:, :height, :width],
         "depth": depth[:height, :width],
         "bin_overflow": overflow,
-        "window_miss_px": window_miss,
     }
 
 
@@ -93,26 +90,14 @@ def make_sharded_renderer(scene_dev, config, mesh: Mesh, width: int, height: int
     Renderer._configure_target so the sharded frame runs the DEFAULT
     pipeline, not a special-cased one.
     """
-    from tpurast.kernels import geometry
-
     axis = mesh.axis_names[0]
     n_dev = mesh.shape[axis]
     tiles_x = -(-width // config.tile_w)
     tiles_y = -(-height // config.tile_h)
     tiles_y = -(-tiles_y // n_dev) * n_dev  # divisible by device count
-    t_local = tiles_x * (tiles_y // n_dev)
     f_pad = int(scene_dev["faces"].shape[0])
-    quantum = 128
-    cap = config.bin_capacity or max(4 * f_pad, 16384)
-    cap = -(-cap // quantum) * quantum
     binning = "pairs" if config.binning == "auto" else config.binning
-    if binning == "pairs":
-        # Mirrors Renderer._configure_target: typical-need sizing (static
-        # segments are a first-order kernel cost), drops surfaced by the
-        # overflow counter.
-        headroom = min(max(256, f_pad // 256), config.segment_headroom)
-    else:
-        headroom = min(config.segment_headroom, max(512, f_pad // 32))
+    cap, headroom = sizing(config, f_pad, binning)
     fn = jax.jit(
         functools.partial(
             render_frame_sharded,
@@ -143,18 +128,6 @@ def make_sharded_renderer(scene_dev, config, mesh: Mesh, width: int, height: int
             ),
             shading=config.shading,
             binning=binning,
-            # Mirror Renderer._configure_target's sampler selection so a
-            # sharded slab renders through the SAME engine as the
-            # single-chip path (bit-identity contract, test_sharding).
-            sampler=(
-                "window"
-                if (
-                    config.shading == "forward"
-                    and config.sampler in ("auto", "window")
-                    and "page" in scene_dev["atlas"]
-                )
-                else "gather"
-            ),
         )
     )
     return fn

@@ -1,6 +1,6 @@
 """Double-buffered device->host framebuffer readback.
 
-The swapchain/present replacement (BASELINE north star): while the TPU
+The swapchain/present replacement (BASELINE north star): while the GPU
 computes frame N, frame N-1's color buffer transfers to host. JAX arrays
 are async by construction — `copy_to_host_async()` starts the DMA and
 `np.asarray` on the *previous* frame overlaps that transfer with the
@@ -15,9 +15,8 @@ import numpy as np
 
 
 def interleave(img: np.ndarray) -> np.ndarray:
-    """(4, H, W) channel-planar (the device framebuffer layout; a
-    channel-minor device array would pad 4 -> 128 lanes) -> (H, W, 4)
-    interleaved host image. The host-side half of the swapchain's
+    """(4, H, W) channel-planar (the device framebuffer layout) ->
+    (H, W, 4) interleaved host image. The host-side half of the swapchain's
     surface-format conversion."""
     if img.ndim == 3 and img.shape[0] == 4:
         return np.ascontiguousarray(np.moveaxis(img, 0, -1))

@@ -2,11 +2,12 @@
 
 Equivalent of src/Renderer.zig (init :162, renderFrame :950,
 recreateSwapchain :631): owns the jit-compiled frame function, the
-HBM-resident scene, and the render-target configuration. A "frame" is one
+device-resident scene, and the render-target configuration. A "frame" is one
 jit call:
 
   vertex transform -> triangle setup/cull -> tile binning
-  -> Pallas visibility raster -> deferred shade -> sRGB encode
+  -> visibility raster (Pallas kernel) -> attribute resolve
+  -> texture gather + lighting -> sRGB encode
 
 All stages are traced into a single XLA program, so per-frame host work is
 one dispatch + the 4x4 view matrix upload (the reference's per-frame
@@ -30,10 +31,6 @@ from tpurast.kernels import geometry, present, raster, resolve, shade
 
 log = logging.getLogger("tpurast.renderer")
 
-#: Residual-tile budget of the compact gather fallback: frames with more
-#: unwindowable tiles than this (pathological) pay a full-frame gather.
-RT_CAP = 64
-
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -44,133 +41,34 @@ def _stage_probe(*arrs):
     returns this instead of the framebuffer, so XLA compiles (and the
     profiler times) exactly the work up to that stage — on the
     PRODUCTION path, with nothing downstream. The full-array sums cost
-    one HBM read of the stage output (sub-ms), far below any stage."""
+    one device-memory read of the stage output."""
     s = jnp.float32(0)
     for a in arrs:
         s = s + jnp.sum(a.astype(jnp.float32))
     return {"stage_probe": s}
 
 
-def _shade_windowed(
-    gbuf,
-    scene,
-    camera_position,
-    *,
-    tiles_x: int,
-    tiles_y: int,
-    tile_h: int,
-    tile_w: int,
-    light_kwargs,
-    stage: str | None = None,
-):
-    """Windowed sampling + in-kernel lighting (kernels/sampler.py), with
-    the per-pixel gather path as a per-tile fallback for tiles whose
-    texel footprint exceeds the window budget. Residual tiles are
-    COMPACTED into a (RT_CAP * tile_h, tile_w) pseudo-frame and shaded
-    there, so a few unwindowable tiles cost a few tiles' worth of
-    gathers — not a full-frame gather pass; only a frame with more
-    than RT_CAP residual tiles (pathological) pays the full-frame
-    path. Both fallbacks sit under lax.cond: frames where every
-    covered tile fits never execute any gather. Returns (framebuffer,
-    window_miss_px) — the counter is surfaced like bin_overflow so an
-    unwindowable scene is visible, not silently slow."""
-    from tpurast.kernels import sampler as ksampler
-    from tpurast.kernels.resolve import A_OUT
+def sizing(cfg: RendererConfig, f_pad: int, binning: str) -> tuple[int, int]:
+    """(bin_capacity, segment_headroom) for a scene of f_pad faces.
 
-    kw = dict(light_kwargs)
-    kw.pop("texel_format")
-    texel_format = light_kwargs["texel_format"]
-    max_anisotropy = kw.pop("max_anisotropy")
-    plan = ksampler.plan_tiles(
-        gbuf,
-        scene["atlas"]["page_origins"],
-        scene["atlas"]["page_sizes"],
-        tiles_x=tiles_x,
-        tiles_y=tiles_y,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        max_anisotropy=max_anisotropy,
-    )
-    if stage == "plan":
-        return _stage_probe(
-            plan["cls"], plan["n_used"], plan["chunk_pack"], plan["assign"]
-        )
-    fb_win = ksampler.sample_tiles(
-        gbuf,
-        scene["atlas"]["page"],
-        plan,
-        camera_position,
-        tiles_x=tiles_x,
-        tiles_y=tiles_y,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        max_anisotropy=max_anisotropy,
-        **kw,
-    )
-    if stage == "sample":
-        return _stage_probe(fb_win)
+    Pair-buffer capacity (scan path): total (tile, face) pairs per frame.
+    Typical scenes produce < 2 pairs/face; 4x is generous headroom and
+    truncation is counted in bin_overflow. The sort path sizes itself.
 
-    def shade_fallback(g):
-        return shade.shade_gbuffer(
-            g,
-            scene["atlas"]["texels"],
-            camera_position,
-            max_anisotropy=max_anisotropy,
-            texel_format=texel_format,
-            **kw,
-        )
-
-    t_total = tiles_x * tiles_y
-    resid = plan["residual_tile"]  # (T,) bool
-    n_resid = jnp.sum(resid.astype(jnp.int32))
-    rt_cap = min(RT_CAP, t_total)
-
-    def compact_fallback(_):
-        # First rt_cap residual tiles in raster order via one top_k.
-        wgt = jnp.where(resid, t_total - jnp.arange(t_total, dtype=jnp.int32), 0)
-        _, tidx = jax.lax.top_k(wgt, rt_cap)
-        live = resid[tidx]
-        sy = (tidx // tiles_x) * tile_h
-        sx = (tidx % tiles_x) * tile_w
-        g_tiles = jax.vmap(
-            lambda y, x: jax.lax.dynamic_slice(
-                gbuf, (0, y, x), (A_OUT, tile_h, tile_w)
-            )
-        )(sy, sx)  # (RT, A_OUT, th, tw)
-        g_img = jnp.transpose(g_tiles, (1, 0, 2, 3)).reshape(
-            A_OUT, rt_cap * tile_h, tile_w
-        )
-        fb_c = shade_fallback(g_img).reshape(4, rt_cap, tile_h, tile_w)
-
-        def put(i, fb):
-            return jax.lax.cond(
-                live[i],
-                lambda f: jax.lax.dynamic_update_slice(
-                    f, fb_c[:, i], (0, sy[i], sx[i])
-                ),
-                lambda f: f,
-                fb,
-            )
-
-        return jax.lax.fori_loop(0, rt_cap, put, fb_win)
-
-    def fullframe_fallback(_):
-        fb_fall = shade_fallback(gbuf)
-        res_px = jnp.broadcast_to(
-            resid.reshape(tiles_y, 1, tiles_x, 1),
-            (tiles_y, tile_h, tiles_x, tile_w),
-        ).reshape(tiles_y * tile_h, tiles_x * tile_w)
-        return jnp.where(res_px[None], fb_fall, fb_win)
-
-    out = jax.lax.cond(
-        n_resid == 0,
-        lambda _: fb_win,
-        lambda _: jax.lax.cond(
-            n_resid <= rt_cap, compact_fallback, fullframe_fallback, None
-        ),
-        None,
-    )
-    return out, plan["residual_px"]
+    Segment headroom is sized to the TYPICAL need (pairs ~ faces/2 for
+    tile-sized triangles -> extra segments ~ pairs/CHUNK) rather than the
+    adversarial bound, because the segment-ordered setup rows scale with
+    it; a frame that exceeds it drops triangles VISIBLY (dropped counter
+    -> Engine warning + bench "dropped_pairs"), and
+    RendererConfig.segment_headroom raises the cap.
+    """
+    cap = cfg.bin_capacity if cfg.bin_capacity is not None else max(4 * f_pad, 16384)
+    cap = _round_up(max(cap, 128), 128)
+    if binning == "pairs":
+        headroom = min(max(256, f_pad // 256), cfg.segment_headroom)
+    else:
+        headroom = min(cfg.segment_headroom, max(512, f_pad // 32))
+    return cap, headroom
 
 
 def render_frame(
@@ -198,17 +96,19 @@ def render_frame(
     output: str = "srgb_u8",
     shading: str = "forward",
     binning: str = "scan",
-    sampler: str = "gather",
+    raster_impl: str = "kernel",
     tile_row_offset=None,
     crop_height: int | None = None,
     stage: str | None = None,
 ):
     """Pure frame function (jit-traced once per config/scene shape).
 
-    shading="forward": Pallas resolve kernel interpolates attributes
-    per pixel in VMEM (kernels/resolve.py) and XLA only samples + lights.
-    shading="deferred": the original per-pixel fat-gather path — same
-    results, kept for A/B verification.
+    shading="forward": the resolve pass gathers the winning face's
+    attributes per pixel into a G-buffer (kernels/resolve.py), then
+    shade.shade_gbuffer samples + lights. shading="deferred": the
+    per-pixel fat-gather path — same results, kept for verification.
+    raster_impl: "kernel" (kernels/raster.rasterize_tiles) or "plain"
+    (its jax.numpy reference formulation).
 
     The SHARDED path (tpurast/parallel.py) calls this same function per
     device with tile_row_offset = its slab's first global tile row and
@@ -254,7 +154,6 @@ def render_frame(
             bin_capacity,
             ty_base=ty_base,
         )
-    tile_counts = bins["counts"]
     overflow = bins["overflow"]
     if stage == "binning":
         return _stage_probe(bins["counts"], bins["offsets"], bins["pair_faces"])
@@ -278,8 +177,7 @@ def render_frame(
         blend=blend,
         texel_format=texture_format,
     )
-    vis = raster.rasterize_tiles(
-        tile_counts,
+    depth, fid = raster.RASTERIZERS[raster_impl](
         setup_out["setup"],
         plan,
         tile_h=tile_h,
@@ -288,10 +186,9 @@ def render_frame(
         tiles_y=tiles_y,
         clear_depth=clear_depth,
         tile_row_offset=tile_row_offset,
-    )  # (2, Hp, Wp) framebuffer layout: depth, face id
+    )  # (Hp, Wp) framebuffer layout: depth, face id
     if stage == "raster":
-        return _stage_probe(vis)
-    depth = vis[0]
+        return _stage_probe(depth, fid)
     dropped_segments = plan["dropped"]
     if shading == "forward":
         attrs = resolve.pack_resolve_attrs(
@@ -303,42 +200,19 @@ def render_frame(
             scene["atlas"],
         )
         gbuf = resolve.resolve_gbuffer(
-            tile_counts,
-            vis,
+            fid,
             attrs,
-            plan,
-            tile_h=tile_h,
-            tile_w=tile_w,
-            tiles_x=tiles_x,
             max_anisotropy=max_anisotropy,
-            tile_row_offset=tile_row_offset,
+            y_offset=y_offset_px,
         )
         if output == "gbuf":
-            return {"gbuf": gbuf, "depth": depth, "fid": vis[1].astype(jnp.int32)}
+            return {"gbuf": gbuf, "depth": depth, "fid": fid}
         if stage == "resolve":
             return _stage_probe(gbuf)
-        if sampler == "window":
-            shaded = _shade_windowed(
-                gbuf,
-                scene,
-                camera_position,
-                tiles_x=tiles_x,
-                tiles_y=tiles_y,
-                tile_h=tile_h,
-                tile_w=tile_w,
-                light_kwargs=light_kwargs,
-                stage=stage,
-            )
-            if isinstance(shaded, dict):  # stage in ("plan", "sample")
-                return shaded
-            framebuffer, window_miss_px = shaded
-        else:
-            framebuffer = shade.shade_gbuffer(
-                gbuf, scene["atlas"]["texels"], camera_position, **light_kwargs
-            )  # (4, Hp, Wp)
-            window_miss_px = jnp.int32(0)
+        framebuffer = shade.shade_gbuffer(
+            gbuf, scene["atlas"]["texels"], camera_position, **light_kwargs
+        )  # (4, Hp, Wp)
     else:
-        fid = vis[1].astype(jnp.int32)
         shade_rows = shade.pack_shade_rows(
             setup_out["setup"],
             face_world,
@@ -355,11 +229,9 @@ def render_frame(
             y_offset=y_offset_px,
             **light_kwargs,
         )
-        window_miss_px = jnp.int32(0)
     result = {
         "depth": present.crop_linear(depth, width, out_h),
         "bin_overflow": jnp.sum(overflow) + dropped_segments,
-        "window_miss_px": window_miss_px,
     }
     if output == "srgb_u8":
         result["color"] = present.encode_srgb_u8(framebuffer, width, out_h)
@@ -420,10 +292,9 @@ class Renderer:
     @staticmethod
     def _resolve_texture_dtype(scene: DeviceScene, requested: str) -> str:
         """texture_dtype="auto": float16 normally, sRGB-u8 rows when the
-        f16 atlas would exceed ~2 GB and the content is LDR. v5e gather
-        throughput degrades sharply with table footprint (DRAM
-        locality), so multi-GB atlases must shrink — the analog of the
-        reference keeping BC-compressed textures resident in VRAM."""
+        f16 atlas would exceed ~2 GB and the content is LDR — a bound on
+        device memory, the analog of the reference keeping BC-compressed
+        textures resident in VRAM."""
         if requested != "auto":
             return requested
         f16_bytes = scene.atlas.texels.nbytes // 2
@@ -434,59 +305,15 @@ class Renderer:
     # -- swapchain-equivalent: (re)configure render target ----------------
     def _configure_target(self, width: int, height: int) -> None:
         cfg = self.config
-        # Sampling engine: windowed (kernels/sampler.py) when the scene
-        # carries texture pages and the shading path is forward; the
-        # deferred path and pageless scenes use the row-atlas gather.
-        if (
-            cfg.shading == "forward"
-            and cfg.sampler in ("auto", "window")
-            and self.scene_host.pages is not None
-        ):
-            self.sampler = "window"
-        else:
-            self.sampler = "gather"
         self.width, self.height = width, height
         self.tiles_x = _round_up(width, cfg.tile_w) // cfg.tile_w
         self.tiles_y = _round_up(height, cfg.tile_h) // cfg.tile_h
-        # Binning path: the chunked scan (dense (T, chunk) overlap masks)
-        # is O(T*F) but has no sort; XLA's lax.sort has a few-ms floor on
-        # TPU, so pair-sort only wins when T*F is large (4K instancing).
         f_pad = int(self.scene_host.faces.shape[0])
         t_total = self.tiles_x * self.tiles_y
-        if cfg.binning == "auto":
-            # Pair-sort wins across the board (measured on v5e, demo
-            # scene @1080p, T*F ~ 10M: sort 1.7 ms vs chunked scan
-            # 9.4 ms — the scan's dense (T, chunk) rank masks dwarf the
-            # lax.sort floor long before the old 150M-T*F cutover).
-            # The scan path stays selectable for A/B testing.
-            self.binning = "pairs"
-        else:
-            self.binning = cfg.binning
-        # Pair-buffer capacity (scan path): total (tile, face) pairs per
-        # frame. Typical scenes produce < 2 pairs/face (tile-sized
-        # triangles); 4x is generous headroom and truncation is counted
-        # in bin_overflow. The sort path sizes itself (TPF * F slots).
-        if cfg.bin_capacity is None:
-            cap = max(4 * f_pad, 16384)
-        else:
-            cap = cfg.bin_capacity
-        self.bin_capacity = _round_up(max(cap, 128), 128)
-        if self.binning == "pairs":
-            # STATIC segment count is a first-order cost: every grid step
-            # of the raster AND resolve kernels pays ~1 us even as a
-            # no-op sentinel, and the per-segment gathers scale with it
-            # (measured: headroom 1471 -> ~4 ms/frame of pure slack at
-            # 1080p). Size to the TYPICAL need (pairs ~ faces/2 for
-            # tile-sized triangles -> extra segments ~ pairs/128) rather
-            # than the adversarial bound; a frame that exceeds it drops
-            # segments VISIBLY (dropped counter -> Engine warning +
-            # bench "dropped_pairs") and segment_headroom in the config
-            # raises it.
-            headroom = min(max(256, f_pad // 256), cfg.segment_headroom)
-        else:
-            # Tail segments are cheap but not free: cap headroom by what
-            # the scene could possibly need.
-            headroom = min(cfg.segment_headroom, max(512, f_pad // 32))
+        # Binning path: "auto" is the pair sort (geometry.bin_pairs); the
+        # chunked scan stays selectable for A/B.
+        self.binning = "pairs" if cfg.binning == "auto" else cfg.binning
+        self.bin_capacity, headroom = sizing(cfg, f_pad, self.binning)
         self.segment_headroom = headroom
         log.debug(
             "binning=%s capacity %d headroom %d (%d tiles)",
@@ -521,12 +348,10 @@ class Renderer:
             output=self.output,
             shading=cfg.shading,
             binning=self.binning,
-            sampler=self.sampler,
         )
         self._frame_fn = jax.jit(
             functools.partial(render_frame, **self._frame_kwargs)
         )
-        self._gbuf_fn = None
 
     def recreate_swapchain(self, width: int, height: int) -> None:
         """Resize the render target; recompiles the frame function and
@@ -558,17 +383,6 @@ class Renderer:
     def render(self, camera: Camera):
         """Render one frame; returns dict of device arrays (async)."""
         return self.render_with_uniforms(*self.frame_uniforms(camera))
-
-    def debug_gbuf(self, camera: Camera, with_fid: bool = False):
-        """Forward-path G-buffer (A_OUT, Hp, Wp) for tooling
-        (tools/sampler_plan_stats.py); not part of the frame path.
-        with_fid=True also returns the visibility face-id image."""
-        if self._gbuf_fn is None:
-            kw = dict(self._frame_kwargs, output="gbuf", shading="forward")
-            self._gbuf_fn = jax.jit(functools.partial(render_frame, **kw))
-        view_proj, cam_pos = self.frame_uniforms(camera)
-        out = self._gbuf_fn(self.scene, view_proj, cam_pos)
-        return (out["gbuf"], out["fid"]) if with_fid else out["gbuf"]
 
     def render_with_uniforms(self, view_proj, camera_position):
         """Render one frame from precomputed frame uniforms (the
